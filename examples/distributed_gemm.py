@@ -1,10 +1,9 @@
 """Mesh-sharded emulated DGEMM across all visible devices.
 
-The reference is single-GPU (SURVEY.md §2.5); this is the TPU-native
-scaling path: 2D mesh, per-shard Pallas encode + int8 MXU matmuls, one
-exact integer psum_scatter in residue space over ICI, CRT reconstruction
-on the owning shard. Runs on a real pod slice or, for a demo, on a
-virtual CPU mesh:
+The reference is single-GPU (SURVEY.md §2.5); this is the scaling path:
+2D mesh, per-shard encode + int8 matmuls, one exact integer psum_scatter
+in residue space, CRT reconstruction on the owning shard. Runs on the
+cards of one machine or, for a demo, on a virtual CPU mesh:
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         JAX_PLATFORMS=cpu python examples/distributed_gemm.py
@@ -19,10 +18,12 @@ import numpy as np
 
 import jax
 
+from gemmul8_tpu.config import enable_compile_cache
 from gemmul8_tpu.parallel import distributed as dist
 from gemmul8_tpu.types import bits_to_f64, f64_to_bits
 
 if __name__ == "__main__":
+    enable_compile_cache()
     mesh = dist.make_mesh()
     nx, ny = mesh.shape["x"], mesh.shape["y"]
     print(f"devices: {len(jax.devices())}, mesh {nx}x{ny}")

@@ -13,12 +13,14 @@ import numpy as np
 import gemmul8_tpu as g8
 from gemmul8_tpu.bench.native import dd_gemm
 from gemmul8_tpu.bench.matrices import phi_matrix, relerr_stats
+from gemmul8_tpu.config import enable_compile_cache
 
 NUM_MODULI = 15
 PHI = 0.5
 N = 1024
 
 if __name__ == "__main__":
+    enable_compile_cache()
     a = phi_matrix(N, N, PHI, seed=123456).astype(np.float32)
     b = phi_matrix(N, N, PHI, seed=123457).astype(np.float32)
     ref = dd_gemm(a.astype(np.float64), b.astype(np.float64))[0]

@@ -10,11 +10,13 @@ import numpy as np
 
 import gemmul8_tpu as g8
 from gemmul8_tpu.bench.matrices import phi_matrix
+from gemmul8_tpu.config import enable_compile_cache
 
 NUM_MODULI = 15
 N = 512
 
 if __name__ == "__main__":
+    enable_compile_cache()
     a = (phi_matrix(N, N, 0.5, 1) + 1j * phi_matrix(N, N, 0.5, 2)).astype(
         np.complex64)
     b = (phi_matrix(N, N, 0.5, 3) + 1j * phi_matrix(N, N, 0.5, 4)).astype(

@@ -1,8 +1,8 @@
-"""gemmul8_tpu — TPU-native high-precision GEMM emulation (Ozaki Scheme II).
+"""gemmul8_tpu — high-precision GEMM emulation (Ozaki Scheme II) in JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of
+A from-scratch JAX/XLA framework with the capabilities of
 ptrkgtsch/mixed-GEMMul8: FP64 / FP32 / mixed / complex GEMM emulated as
-`num_moduli` exact int8 residue matmuls on the MXU, recombined by CRT.
+`num_moduli` exact int8 residue matmuls, recombined by CRT.
 """
 
 from . import tables

@@ -2,16 +2,16 @@
 
 The reference benches GEMMul8 against RIKEN's ozIMMU_EF (Ozaki scheme I:
 exponent-block splitting of FP64 into `num_split` int8 slices, slice-pair
-int8 GEMMs, error-free accumulation — /root/reference/ozIMMU_EF/src/
-split.cu + gemm.cu:340-461). This TPU-native re-implementation exists so
+int8 GEMMs, error-free accumulation — ozIMMU_EF src/split.cu +
+gemm.cu:340-461). This re-implementation exists so
 our harness can produce the same comparison rows (BASELINE.md §1
 ozIMMU_EF-8/-9).
 
 Design: FP64 operands are split bitwise into b=7-bit signed slices aligned
 at the per-row/col max exponent; all slice pairs with s1+s2 < num_split
-run as one batched int8 MXU GEMM; the int32 pair products are accumulated
+run as one batched int8 GEMM; the int32 pair products are accumulated
 EXACTLY into a signed multi-limb fixed-point register (each diagonal
-d = s1+s2 shifted by (num_split-1-d)*b bits) — the TPU-native version of
+d = s1+s2 shifted by (num_split-1-d)*b bits) — the integer version of
 the reference's group-wise error-free f64 accumulation — and rounded once
 to f64. Error comes only from the slice truncation: ~2^(-7*num_split)
 relative to the row/col max, crossing native DGEMM accuracy at ~9 slices

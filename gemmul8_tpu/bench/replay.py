@@ -33,8 +33,8 @@ def replay(path: str, num_moduli: int = 14, fastmode: bool = True,
     from .native import dd_gemm, relerr_vs_dd
 
     a, b, _ = load_case(path)
-    # as_numpy: on TPU an f64 result is an F64Bits pair — np.asarray would
-    # stack the raw bit words instead of reassembling the doubles
+    # as_numpy: without x64 an f64 result is an F64Bits pair — np.asarray
+    # would stack the raw bit words instead of reassembling the doubles
     c = as_numpy(gemm(a, b, num_moduli=num_moduli, fastmode=fastmode,
                       **gemm_kwargs))
     hi, lo = dd_gemm(np.asarray(a, np.float64), np.asarray(b, np.float64))

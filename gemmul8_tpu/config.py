@@ -19,14 +19,8 @@ re-expressed for this engine:
                                 mirror, ozIMMU_EF/README.md:68-69) —
                                 baselines.ozimmu.auto_num_split default
 
-Kernel-schedule opt-ins (read at trace time, not via this registry):
-  GEMMUL8_PIPELINE              0 (default) | 1 | 2 | 3 — panel/rider
-                                software pipeline level
-                                (pallas/pipelined.pipeline_mode)
-  GEMMUL8_FUSED_ENCODE / GEMMUL8_FUSED_RECONSTRUCT / GEMMUL8_MM_PIPELINE
-                                measured-slower fusion variants kept as
-                                opt-in records (PERF_NOTES.md)
-  GEMMUL8_BENCH_MODES           bench.py's candidate schedule list
+JAX's own JAX_COMPILATION_CACHE_DIR names the persistent compile cache
+(see enable_compile_cache).
 """
 
 from __future__ import annotations
@@ -34,6 +28,25 @@ from __future__ import annotations
 import os
 import sys
 from dataclasses import dataclass, field
+from pathlib import Path
+
+# <repo root>/.jax_cache (listed in .gitignore): a fixed path, so that
+# every run of the repo's entry points finds what an earlier run compiled
+DEFAULT_COMPILE_CACHE = Path(__file__).resolve().parent.parent / ".jax_cache"
+
+
+def enable_compile_cache() -> str:
+    """Turn on JAX's persistent compile cache and return its directory.
+
+    Where JAX_COMPILATION_CACHE_DIR is set, JAX already reads it and this
+    sets nothing; otherwise the cache goes to DEFAULT_COMPILE_CACHE."""
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    import jax
+
+    jax.config.update("jax_compilation_cache_dir", str(DEFAULT_COMPILE_CACHE))
+    return str(DEFAULT_COMPILE_CACHE)
 
 
 def _env_int(name: str, default: int) -> int:

@@ -31,7 +31,8 @@ import jax.numpy as jnp
 import numpy as np
 
 from .. import tables
-from ..types import C64Bits, ComputeType, F64Bits, bits_to_f64, f64_to_bits
+from ..types import (C64Bits, ComputeType, F64Bits, backend_has_f64,
+                     bits_to_f64, f64_to_bits)
 from . import encode as enc
 from . import reconstruct as rec
 from . import slicegemm as sg
@@ -50,7 +51,7 @@ _KMAX = {
 
 def _recenter_add_int8(x8: jax.Array, y8: jax.Array, num_moduli: int):
     """Residue-space add with re-centering: (x + y) mod m in [-128, 127].
-    TPU-native version of the reference's add_int8_mat (mat_utils.hpp:30-83)."""
+    The reference's add_int8_mat (mat_utils.hpp:30-83)."""
     t = x8.astype(_I32) + y8.astype(_I32)  # (L, ...) in [-255, 255]
     outs = []
     for j in range(num_moduli):
@@ -80,76 +81,10 @@ def _accurate_sfts(a_re, a_im, b_re, b_im, num_moduli: int):
     return sft_a, sft_b
 
 
-def _joint_sft_pallas(re, im, num_moduli, axis):
-    """Shared Re/Im fast-mode shift via two Pallas stats passes merged
-    elementwise (pmax on exponents, power-of-two-rescaled norm sum — the
-    same exact merge the sharded path uses across shards)."""
-    from ..pallas import kernels as pk
-
-    mant_bits = 53 if isinstance(re, F64Bits) else 24
-    er, sr, ar = pk.fast_sft_pallas(re, num_moduli, axis, return_stats=True)
-    ei, si, ai = pk.fast_sft_pallas(im, num_moduli, axis, return_stats=True)
-    emax = jnp.maximum(er, ei)
-    nrm2 = (sr * jnp.exp2((2 * (er - emax)).astype(jnp.float32))
-            + si * jnp.exp2((2 * (ei - emax)).astype(jnp.float32)))
-    af = ar | ai
-    k_total = 2 * re.shape[axis]  # joint norm spans both parts
-    return enc.sft_from_stats(emax, nrm2, af, k_total, num_moduli, mant_bits)
-
-
-def _mag7_complex_pallas(re, im, axis):
-    """Pallas joint round-up magnitude bound (|re|+|im| at the shared
-    emax) — bit-identical to enc.mag7_complex (max and extraction are
-    order-independent)."""
-    from ..pallas import kernels as pk
-
-    emax = jnp.maximum(pk.emax_pallas(re, axis), pk.emax_pallas(im, axis))
-    mr = pk.mag7_pallas(re, emax, axis, enc.MAG_SHIFT_COMPLEX).astype(_I32)
-    mi = pk.mag7_pallas(im, emax, axis, enc.MAG_SHIFT_COMPLEX).astype(_I32)
-    return (mr + mi).astype(jnp.int8), emax
-
-
-def _accurate_sfts_pallas(a_re, a_im, b_re, b_im, num_moduli):
-    """Accurate-mode complex shifts on the Pallas kernels: joint-emax
-    mag7 per operand + the fused row/col-max magnitude GEMM (no (m, n)
-    int32 round trip) — bit-identical to _accurate_sfts."""
-    from ..pallas import matmul as pm
-
-    mag_a, emax_a = _mag7_complex_pallas(a_re, a_im, 1)
-    mag_b, emax_b = _mag7_complex_pallas(b_re, b_im, 0)
-    smax_a, smax_b = pm.magmax_matmul_pallas(mag_a, mag_b)
-    mant_a = 53 if isinstance(a_re, F64Bits) else 24
-    mant_b = 53 if isinstance(b_re, F64Bits) else 24
-    sft_a = enc.accurate_sft(smax_a, emax_a, num_moduli, mant_a,
-                             enc.MAG_SHIFT_COMPLEX)
-    sft_b = enc.accurate_sft(smax_b, emax_b, num_moduli, mant_b,
-                             enc.MAG_SHIFT_COMPLEX)
-    return sft_a, sft_b
-
-
-def _encode_complex_operands(a_re, a_im, b_re, b_im, num_moduli, fastmode,
-                             use_pallas=False):
-    if fastmode and use_pallas:
-        from ..pallas import kernels as pk
-
-        sft_a = _joint_sft_pallas(a_re, a_im, num_moduli, 1)
-        sft_b = _joint_sft_pallas(b_re, b_im, num_moduli, 0)
-        a8r = pk.encode_slices_pallas(a_re, sft_a, num_moduli, axis=1)
-        a8i = pk.encode_slices_pallas(a_im, sft_a, num_moduli, axis=1)
-        b8r = pk.encode_slices_pallas(b_re, sft_b, num_moduli, axis=0)
-        b8i = pk.encode_slices_pallas(b_im, sft_b, num_moduli, axis=0)
-    elif fastmode:
+def _encode_complex_operands(a_re, a_im, b_re, b_im, num_moduli, fastmode):
+    if fastmode:
         a8r, a8i, sft_a = enc.encode_fast_complex(a_re, a_im, num_moduli, 1)
         b8r, b8i, sft_b = enc.encode_fast_complex(b_re, b_im, num_moduli, 0)
-    elif use_pallas:
-        from ..pallas import kernels as pk
-
-        sft_a, sft_b = _accurate_sfts_pallas(a_re, a_im, b_re, b_im,
-                                             num_moduli)
-        a8r = pk.encode_slices_pallas(a_re, sft_a, num_moduli, axis=1)
-        a8i = pk.encode_slices_pallas(a_im, sft_a, num_moduli, axis=1)
-        b8r = pk.encode_slices_pallas(b_re, sft_b, num_moduli, axis=0)
-        b8i = pk.encode_slices_pallas(b_im, sft_b, num_moduli, axis=0)
     else:
         sft_a, sft_b = _accurate_sfts(a_re, a_im, b_re, b_im, num_moduli)
         a8r, a8i = enc.encode_accurate_complex(a_re, a_im, sft_a, num_moduli)
@@ -158,32 +93,18 @@ def _encode_complex_operands(a_re, a_im, b_re, b_im, num_moduli, fastmode,
 
 
 def _reconstruct_pair(r_re, r_im, sft_a, sft_b, num_moduli, out_kind,
-                      use_pallas=False, e_extra=0):
+                      e_extra=0):
     """One reconstruct call over [Re; Im] stacked along rows."""
     r2 = jnp.concatenate([r_re, r_im], axis=1)
     sft_a2 = jnp.concatenate([sft_a, sft_a], axis=0)
-    out = _reconstruct(r2, sft_a2, sft_b, num_moduli, out_kind, use_pallas,
-                       e_extra)
+    out = rec.reconstruct(r2, sft_a2, sft_b, num_moduli, out_kind, e_extra)
     m = r_re.shape[1]
     return out[:m], out[m:]
 
 
-def _reconstruct(r, sft_a, sft_b, num_moduli, out_kind, use_pallas,
-                 e_extra=0):
-    if use_pallas:
-        from ..pallas import kernels as pk
-
-        # r is canonical residues in [0, m): uint8 carries them exactly and
-        # selects the kernel's no-second-mod input branch
-        return pk.reconstruct_pallas(r.astype(jnp.uint8), sft_a, sft_b,
-                                     num_moduli, out_kind, e_extra=e_extra)
-    return rec.reconstruct(r, sft_a, sft_b, num_moduli, out_kind, e_extra)
-
-
 def gemm_complex_core(a_re, a_im, b_re, b_im, num_moduli: int,
                       fastmode: bool, compute_type: ComputeType,
-                      out_kind: str, use_pallas: bool = False,
-                      e_extra: int = 0):
+                      out_kind: str, e_extra: int = 0):
     """Emulated complex GEMM on canonical (re, im) operand pairs.
     Returns (re, im) in the target real format. e_extra: power-of-two
     (real) alpha exponent folded into the inverse scaling (exact, free)."""
@@ -195,37 +116,7 @@ def gemm_complex_core(a_re, a_im, b_re, b_im, num_moduli: int,
             f"k={k} exceeds the int32-exactness bound for {compute_type}")
 
     a8r, a8i, sft_a, b8r, b8i, sft_b = _encode_complex_operands(
-        a_re, a_im, b_re, b_im, num_moduli, fastmode, use_pallas)
-
-    if use_pallas:
-        # Performance path (VERDICT r4 item 3): ONE fused Pallas kernel
-        # computes the Re/Im residue products with the Barrett epilogue
-        # — the same engine that carried the real path past 1.0x — then
-        # the MXU-CRT reconstruct consumes the centered residues. The
-        # big-matrix quadrant concat is algebraically the 4-dot
-        # accumulate (the reference's [[Re,-Im],[Im,Re]] block GEMM,
-        # gemmul8.cu:579-723, with the concat rewritten as accumulate-
-        # in-place: identical exact integer sums, bit-identical
-        # residues), so BIG_MATRIX and CLASSIC share the kernel;
-        # KARATSUBA runs its 3-dot schedule (gemmul8.cu:725-890).
-        from ..pallas import kernels as pk
-        from ..pallas import matmul as pm
-
-        ctr = pk.mxu_crt_default()
-        if compute_type == ComputeType.COMPLEX_KARATSUBA_MULT:
-            s_a = _recenter_add_int8(a8r, a8i, num_moduli)
-            s_b = _recenter_add_int8(b8r, b8i, num_moduli)
-            r8re, r8im = pm.matmul_complex_mod_pallas(
-                a8r, a8i, b8r, b8i, num_moduli, centered=ctr,
-                kara=(s_a, s_b))
-        else:
-            r8re, r8im = pm.matmul_complex_mod_pallas(
-                a8r, a8i, b8r, b8i, num_moduli, centered=ctr)
-        out_re = pk.reconstruct_pallas(r8re, sft_a, sft_b, num_moduli,
-                                       out_kind, mxu=ctr, e_extra=e_extra)
-        out_im = pk.reconstruct_pallas(r8im, sft_a, sft_b, num_moduli,
-                                       out_kind, mxu=ctr, e_extra=e_extra)
-        return out_re, out_im
+        a_re, a_im, b_re, b_im, num_moduli, fastmode)
 
     if compute_type == ComputeType.COMPLEX_BIG_MATRIX_ENCODE:
         neg_a8i = (-a8i.astype(_I32)).astype(jnp.int8)
@@ -236,8 +127,8 @@ def gemm_complex_core(a_re, a_im, b_re, b_im, num_moduli: int,
         c32 = sg.slice_products(a_blk, b_blk)                # (L, 2m, n)
         r = sg.mod_reduce(c32, num_moduli)
         sft_a2 = jnp.concatenate([sft_a, sft_a], axis=0)
-        out = _reconstruct(r, sft_a2, sft_b, num_moduli, out_kind,
-                           use_pallas, e_extra)
+        out = rec.reconstruct(r, sft_a2, sft_b, num_moduli, out_kind,
+                              e_extra)
         m = a_re.shape[0]
         return out[:m], out[m:]
 
@@ -249,7 +140,7 @@ def gemm_complex_core(a_re, a_im, b_re, b_im, num_moduli: int,
         r_re = sg.mod_reduce(rr - ii, num_moduli)
         r_im = sg.mod_reduce(ri + ir, num_moduli)
         return _reconstruct_pair(r_re, r_im, sft_a, sft_b, num_moduli,
-                                 out_kind, use_pallas, e_extra)
+                                 out_kind, e_extra)
 
     if compute_type == ComputeType.COMPLEX_KARATSUBA_MULT:
         s_a = _recenter_add_int8(a8r, a8i, num_moduli)
@@ -260,7 +151,7 @@ def gemm_complex_core(a_re, a_im, b_re, b_im, num_moduli: int,
         r_re = sg.mod_reduce(e - f, num_moduli)
         r_im = sg.mod_reduce(g - e - f, num_moduli)
         return _reconstruct_pair(r_re, r_im, sft_a, sft_b, num_moduli,
-                                 out_kind, use_pallas, e_extra)
+                                 out_kind, e_extra)
 
     raise ValueError(compute_type)
 
@@ -278,6 +169,8 @@ def _canon_complex(x):
         # (+0.0 is all-zero bits)
         zero = F64Bits(jnp.zeros_like(x.hi), jnp.zeros_like(x.lo))
         return x, zero, "c128"
+    if isinstance(x, np.ndarray) and backend_has_f64():
+        x = jnp.asarray(x)   # one transfer; the split happens on device
     if isinstance(x, np.ndarray):
         if x.dtype == np.complex128:
             return (f64_to_bits(np.ascontiguousarray(x.real)),
@@ -304,10 +197,9 @@ def _canon_complex(x):
 @lru_cache(maxsize=None)
 def _jit_complex_core(num_moduli, fastmode, compute_type, out_kind,
                       e_extra=0):
-    use_pallas = jax.default_backend() == "tpu"
     return jax.jit(lambda ar, ai, br, bi: gemm_complex_core(
         ar, ai, br, bi, num_moduli, fastmode, compute_type, out_kind,
-        use_pallas, e_extra))
+        e_extra))
 
 
 def _cscale(re, im, z):
@@ -328,8 +220,8 @@ def _cscale(re, im, z):
 
 @lru_cache(maxsize=None)
 def _jit_epi_c128(alpha: complex, beta: complex):
-    """One traced softfloat complex alpha/beta epilogue (O(1) dispatches
-    on TPU — the eager _cscale chain issued dozens)."""
+    """One traced softfloat complex alpha/beta epilogue (one dispatch;
+    the eager _cscale chain issued dozens)."""
     from . import softfloat as sf
 
     def f(rh, rl, ih, il, crh=None, crl=None, cih=None, cil=None):
@@ -383,25 +275,16 @@ def gemm_complex(a, b, *, alpha=1.0, beta=0.0, c=None, num_moduli=14,
     ore, oim = _jit_complex_core(num_moduli, fastmode, compute_type,
                                  out_kind, e_extra)(a_re, a_im, b_re, b_im)
     if out_kind == "f32":
-        # alpha/beta in real f32 arithmetic: some TPU runtimes cannot hold
-        # complex64 device arrays at all (transfers raise UNIMPLEMENTED)
         if alpha != 1.0 or beta != 0.0:
             if beta != 0.0 and c is None:
                 raise ValueError("beta != 0 requires c")
             fn = _jit_epi_c64(complex(alpha), complex(beta))
             if beta != 0.0:
-                cn = np.asarray(c, np.complex64)
-                ore, oim = fn(ore, oim,
-                              jnp.asarray(cn.real, jnp.float32),
-                              jnp.asarray(cn.imag, jnp.float32))
+                cn = jnp.asarray(c, jnp.complex64)
+                ore, oim = fn(ore, oim, jnp.real(cn), jnp.imag(cn))
             else:
                 ore, oim = fn(ore, oim)
-        if jax.default_backend() == "cpu":
-            return jax.lax.complex(ore, oim)
-        # complex64 is unsupported on device: interleave ON DEVICE and
-        # reinterpret-view on host (no host arithmetic)
-        from ..types import assemble_c64_host
-        return assemble_c64_host(ore, oim)
+        return jax.lax.complex(ore, oim)
     # c128 path: one jitted softfloat graph (bit-identical to the eager
     # chain — asserted in tests/test_complex.py)
     if alpha != 1.0 or beta != 0.0:
@@ -413,12 +296,13 @@ def gemm_complex(a, b, *, alpha=1.0, beta=0.0, c=None, num_moduli=14,
                 np.asarray(c) if not isinstance(c, (C64Bits, F64Bits,
                                                     jax.Array)) else c)
             if kind_c != "c128":
-                # narrow c (complex64/f32): widen exactly on host — the
+                # narrow c (complex64/f32): widening is exact — the
                 # softfloat epilogue needs F64Bits operands
-                c_re = f64_to_bits(np.asarray(jax.device_get(c_re),
-                                              np.float64))
-                c_im = f64_to_bits(np.asarray(jax.device_get(c_im),
-                                              np.float64))
+                c_re, c_im = (f64_to_bits(jnp.asarray(x, jnp.float64))
+                              if backend_has_f64() else
+                              f64_to_bits(np.asarray(jax.device_get(x),
+                                                     np.float64))
+                              for x in (c_re, c_im))
             rh, rl, ih, il = fn(ore.hi, ore.lo, oim.hi, oim.lo,
                                 c_re.hi, c_re.lo, c_im.hi, c_im.lo)
         else:
@@ -427,7 +311,7 @@ def gemm_complex(a, b, *, alpha=1.0, beta=0.0, c=None, num_moduli=14,
     res = C64Bits(ore, oim)
     # bits-domain contract, symmetric with the real path: a caller who
     # passed ANY bits operand (C64Bits or F64Bits) gets bits back
-    if jax.default_backend() == "cpu" and not any(
+    if backend_has_f64() and not any(
             isinstance(x, (C64Bits, F64Bits)) for x in (a, b)):
-        return bits_to_f64(ore) + 1j * bits_to_f64(oim)
+        return jax.lax.complex(bits_to_f64(ore), bits_to_f64(oim))
     return res

@@ -6,13 +6,13 @@ plus the per-row (or per-column) shift exponents `sft`, such that every
 emulated dot product satisfies |sum_k trunc(a)*trunc(b)| <= (M-1)/2 and is
 therefore exactly recoverable from its residues by CRT.
 
-TPU-native design: TPU has no exact f64 compute, so all of this runs on raw
-IEEE-754 bit patterns with int32 VPU ops — exponent-field extraction, funnel
-shifts of the significand, and Barrett-free modular reduction of 16-bit
-significand chunks against precomputed 2^(16*i) mod m_j constants.  This
-replaces the reference's f64 scalbn/trunc/FMA kernels
-(/root/reference/GEMMul8/src/scaling.hpp:155-230, 3371-3882) with integer
-arithmetic of identical mathematical effect.
+Design: all of this runs on raw IEEE-754 bit patterns with elementwise
+int32 ops — exponent-field extraction, funnel shifts of the significand,
+and Barrett-free modular reduction of 16-bit significand chunks against
+precomputed 2^(16*i) mod m_j constants — so the slices are bit-identical on
+every backend, whatever its float64 unit does. This replaces the
+reference's f64 scalbn/trunc/FMA kernels (GEMMul8 src/scaling.hpp:155-230,
+3371-3882) with integer arithmetic of identical mathematical effect.
 
 Shift selection (fast mode, "vecnorm"): per row,
     sft = min(T-1, floor(-0.51*log2(nrm2_scaled) + T)) - ilogb(amax)
@@ -99,8 +99,8 @@ def _funnel_shift_right(chunks: Sequence[jax.Array], u: jax.Array):
     [0, 63], elementwise. Returns chunks of the shifted value.
 
     Packs the limbs into uint32 words and funnel-shifts those — ~3x fewer
-    VPU ops than per-limb select chains (this runs inside the encode hot
-    kernel on every element)."""
+    elementwise ops than per-limb select chains (this runs inside the
+    encode hot kernel on every element)."""
     n = len(chunks)
     _U = jnp.uint32
     if n == 2:
@@ -265,24 +265,22 @@ def _fast_sft_multi(parts, axis: int, num_moduli: int, mant_bits: int,
     shard_map) — stats then psum/pmax across shards so every shard picks
     the same globally-valid shift.
 
-    Parity note (see pallas.kernels.fast_sft_pallas): the squared norm
-    here is one flat f32 sum; the Pallas kernel accumulates it block-by-
-    block with online rescaling. The two values can differ in the last
-    ulp, so the derived shifts agree except when the shift formula lands
-    within f32 summation-order noise of a floor boundary — then they may
-    legally differ by 1 (both shifts are valid encodings)."""
+    Order note: the squared norm is an f32 sum whose order is the
+    backend's own (XLA's CPU and GPU reductions differ). The values can
+    differ in the last ulp, so shifts agree across backends except when
+    the shift formula lands within f32 summation-order noise of a floor
+    boundary — then they may legally differ by 1 (both shifts are valid
+    encodings; see sft_floor_frac)."""
     emax, nrm2, anyfinite, k = _fast_stats_multi(parts, axis, mant_bits,
                                                  axis_name)
-    # the single shared shift formula (the pallas/jnp bit-exactness
-    # invariant depends on one implementation)
+    # one shift formula for every path (sft_floor_frac mirrors it)
     sft = sft_from_stats(emax, nrm2, anyfinite, k, num_moduli, mant_bits)
     return sft, emax
 
 
 def _fast_stats_multi(parts, axis: int, mant_bits: int, axis_name=None):
     """Raw fast-mode statistics (emax, nrm2, anyfinite, k_total) for one or
-    more parts sharing the shift — the jnp reference for the Pallas stats
-    kernel and the input to sft_from_stats."""
+    more parts sharing the shift — the input to sft_from_stats."""
     emax = None
     for chunks, exp, sign, normal in parts:
         e = jnp.max(jnp.where(normal, exp, _I32(0)), axis=axis, keepdims=True)
@@ -540,28 +538,15 @@ def sft_from_stats(emax, nrm2, anyfinite, k_total: int, num_moduli: int,
 
 def sft_floor_frac(nrm2, k_total: int, num_moduli: int):
     """Distance of sft_from_stats' pre-floor value from its nearest
-    integer, per row/col. The parity tests use this: the Pallas stats
-    kernel accumulates the f32 squared norm block-by-block while the jnp
-    path sums flat, so nrm2 can differ in the last ulp and the floored
-    shift may legally differ by 1 exactly when this distance is within
-    f32 summation noise. MUST share its constants with sft_from_stats —
-    a drift between the two would let the tests misclassify real parity
-    bugs as boundary noise."""
+    integer, per row/col. Cross-backend comparisons use this: two backends
+    sum the f32 squared norm in different orders, so nrm2 can differ in
+    the last ulp and the floored shift may legally differ by 1 exactly
+    when this distance is within f32 summation noise. MUST share its
+    constants with sft_from_stats — a drift between the two would let a
+    comparison misclassify real parity bugs as boundary noise."""
     t_f = tables.threshold_fast(num_moduli)
     n2 = jnp.maximum(jnp.asarray(nrm2, jnp.float32)
                      * jnp.float32(1.0 + k_total * 2.0 ** -23),
                      jnp.float32(1.0))
     v = -0.51 * jnp.log2(n2) + t_f
     return jnp.minimum(v - jnp.floor(v), jnp.ceil(v) - v)
-
-
-def combine_stats(emax, nrm2, anyfinite, axis_name):
-    """Merge shard-local fast-mode stats over a mesh axis: pmax on the
-    exponent, psum of norms rescaled to the global max exponent (exact
-    powers of two), OR on the finite flag."""
-    emax_g = jax.lax.pmax(emax, axis_name)
-    nrm2_g = jax.lax.psum(
-        nrm2 * jnp.exp2((2 * (emax - emax_g)).astype(jnp.float32)),
-        axis_name)
-    af_g = jax.lax.psum(anyfinite.astype(_I32), axis_name)
-    return emax_g, nrm2_g, af_g

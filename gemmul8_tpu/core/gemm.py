@@ -1,7 +1,7 @@
 """GEMM-emulation orchestrator: encode -> slice int8 GEMMs -> mod-reduce ->
 CRT reconstruct, for every real input/output dtype combination.
 
-This is the TPU-native counterpart of the reference's gemm template
+This is the JAX counterpart of the reference's gemm template
 specializations (/root/reference/GEMMul8/src/gemmul8.cu:149-577): one
 jittable function of the operands, composed of the four phases the reference
 times separately. Mixed precision falls out of per-operand encode dispatch
@@ -16,7 +16,6 @@ Output: F64Bits ('f64' target) or float32 array ('f32' target).
 
 from __future__ import annotations
 
-from functools import partial
 from typing import Union
 
 import jax
@@ -53,36 +52,23 @@ def encode_operand_fast(x: Operand, num_moduli: int, axis: int):
     return enc.encode_fast_f32(x, num_moduli, axis)
 
 
-def accurate_sfts(a: Operand, b: Operand, num_moduli: int,
-                  use_pallas: bool = False):
+def accurate_sfts(a: Operand, b: Operand, num_moduli: int):
     """Accurate-mode ('int8tc') joint shift selection: 7-bit round-up
     magnitudes, one extra int8 GEMM |A|x|B|, then per-row/col shifts from the
-    product-magnitude estimate (reference scaling.hpp:3053-3136).
-
-    use_pallas=True runs the extraction in fused VMEM kernels and the
-    magnitude GEMM with a fused row/col-max epilogue (no (m, n) int32
-    round trip) — bit-identical to the jnp path (max reductions are
-    order-independent, unlike the fast-mode norm)."""
-    if use_pallas:
-        from ..pallas import kernels as pk
-        from ..pallas import matmul as pm
-
-        mag_a, emax_a = pk.mag7_operand_pallas(a, axis=1)
-        mag_b, emax_b = pk.mag7_operand_pallas(b, axis=0)
-        smax_a, smax_b = pm.magmax_matmul_pallas(mag_a, mag_b)
+    product-magnitude estimate (reference scaling.hpp:3053-3136). Every
+    reduction is a max, so the shifts do not depend on summation order."""
+    if _is_f64(a):
+        mag_a, emax_a = enc.mag7_f64(a, axis=1)
     else:
-        if _is_f64(a):
-            mag_a, emax_a = enc.mag7_f64(a, axis=1)
-        else:
-            mag_a, emax_a = enc.mag7_f32(a, axis=1)
-        if _is_f64(b):
-            mag_b, emax_b = enc.mag7_f64(b, axis=0)
-        else:
-            mag_b, emax_b = enc.mag7_f32(b, axis=0)
-        s = jax.lax.dot_general(mag_a, mag_b, (((1,), (0,)), ((), ())),
-                                preferred_element_type=jnp.int32)
-        smax_a = jnp.max(s, axis=1, keepdims=True)
-        smax_b = jnp.max(s, axis=0, keepdims=True)
+        mag_a, emax_a = enc.mag7_f32(a, axis=1)
+    if _is_f64(b):
+        mag_b, emax_b = enc.mag7_f64(b, axis=0)
+    else:
+        mag_b, emax_b = enc.mag7_f32(b, axis=0)
+    s = jax.lax.dot_general(mag_a, mag_b, (((1,), (0,)), ((), ())),
+                            preferred_element_type=jnp.int32)
+    smax_a = jnp.max(s, axis=1, keepdims=True)
+    smax_b = jnp.max(s, axis=0, keepdims=True)
     sft_a = enc.accurate_sft(smax_a, emax_a, num_moduli,
                              53 if _is_f64(a) else 24)
     sft_b = enc.accurate_sft(smax_b, emax_b, num_moduli,
@@ -99,7 +85,7 @@ def encode_operand_accurate(a: Operand, b: Operand, num_moduli: int):
 
 def gemm_core(a: Operand, b: Operand, num_moduli: int, fastmode: bool,
               out_dtype: str, moduli_chunk: int | None = None,
-              use_pallas: bool | None = None, alpha_e: int = 0):
+              alpha_e: int = 0):
     """C = A @ B emulated. a: (m,k); b: (k,n). Returns F64Bits or f32.
 
     moduli_chunk: low-memory mode — materialize only `moduli_chunk` residue
@@ -110,97 +96,23 @@ def gemm_core(a: Operand, b: Operand, num_moduli: int, fastmode: bool,
     num_moduli.
 
     alpha_e: static exponent of a power-of-two alpha, folded into the
-    reconstruct's inverse scaling (exact, free — the TPU analog of the
-    reference's alpha-fused inverse_scaling variants). The opt-in
-    pipeline/megakernel schedules don't thread it; they fall back to the
-    monolithic schedule when alpha_e != 0."""
+    reconstruct's inverse scaling (exact and free — the analog of the
+    reference's alpha-fused inverse_scaling variants)."""
     _check_shapes(a, b)
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-    import os
-    one_shot = moduli_chunk is None or moduli_chunk >= num_moduli
-    if (use_pallas and fastmode and one_shot
-            and os.environ.get("GEMMUL8_FUSED_ENCODE") == "1"):
-        # opt-in stats+encode fusion (one HBM read instead of two).
-        # Measured SLOWER at 8192^2 (13.2 vs 11.3 ms isolated): the
-        # full-k-resident block materializes the chunk intermediates at
-        # megabyte granularity and the extra VMEM traffic outweighs the
-        # saved source read (PERF_NOTES.md). Shifts stay bit-identical
-        # to the two-kernel pipeline.
-        sft_a = sft_b = None
-    else:
-        sft_a, sft_b = _select_sfts(a, b, num_moduli, fastmode, use_pallas)
-    if one_shot:
-        if use_pallas:
-            from ..pallas import kernels as pk
-            from ..pallas import matmul as pm
-            from ..pallas import megakernel as mk
-            from ..pallas import pipelined as pp
-
-            pipe = pp.pipeline_mode() if alpha_e == 0 else 0
-            cfg = pp.choose_panels(a.shape[0], b.shape[1], a.shape[1],
-                                   num_moduli, encode_rider=pipe >= 2) \
-                if pipe else None
-            if cfg and sft_a is not None and out_dtype in ("f64", "f32"):
-                # panel/rider pipeline: the CRT reconstruct of panel p-1
-                # (and, at level 2, the encode of A-panel p+1; at level 3
-                # also B's right-half encode in a split first panel) rides
-                # inside panel p's matmul kernel as independent VPU work
-                # the MXU hides (bit-identical; pallas/pipelined.py).
-                # Accurate mode rides the same schedule: its shifts were
-                # already selected above (mag7 + magnitude-GEMM pre-phase
-                # runs bare), and encode/matmul/reconstruct are
-                # shift-agnostic downstream. f32 output and mixed-dtype
-                # operands ride it too (per-operand rider encode bodies).
-                bsp = (pipe == 3 and pp.bsplit_applicable(
-                    a.shape[0], b.shape[1], a.shape[1], num_moduli,
-                    cfg[0], cfg[1]))
-                return pp.gemm_pipelined(a, b, num_moduli, kind=out_dtype,
-                                         panel_m=cfg[0], bn=cfg[1],
-                                         sfts=(sft_a, sft_b),
-                                         encode_rider=pipe >= 2,
-                                         b_rider=bsp)
-
-            if sft_a is None:
-                a8, sft_a = pk.fast_encode_fused_pallas(a, num_moduli,
-                                                        axis=1)
-                b8, sft_b = pk.fast_encode_fused_pallas(b, num_moduli,
-                                                        axis=0)
-            else:
-                a8 = pk.encode_slices_pallas(a, sft_a, num_moduli, axis=1)
-                b8 = pk.encode_slices_pallas(b, sft_b, num_moduli, axis=0)
-            m, k = a.shape
-            n = b.shape[1]
-            import os
-            if (alpha_e == 0
-                    and os.environ.get("GEMMUL8_FUSED_RECONSTRUCT") == "1"
-                    and mk.fused_reconstruct_ok(m, n, k, num_moduli)):
-                # opt-in fused matmul+reconstruct megakernel. Measured
-                # SLOWER than the unfused pipeline at 8192^3 (92 vs
-                # 55 ms): its tile-major grid must stream BOTH operand
-                # tiles every step (~370 GB/s sustained), while the
-                # moduli-major kernel below reuses the A tile across the
-                # n axis (~190 GB/s) — the VMEM-resident-residue design
-                # cannot keep the A-reuse. Kept for small problems and
-                # as the measured record (PERF_NOTES.md).
-                return mk.matmul_reconstruct_pallas(
-                    a8, b8, sft_a, sft_b, num_moduli, out_dtype)
-            # residue epilogue + separate reconstruct (faster than the
-            # CRT-limb matmul variant whose epilogue cannot hide — 15.7
-            # vs 14.0 TFLOP/s at 8192^3, see matmul_crt_pallas). With
-            # the MXU-CRT consumer the epilogue centers the residues to
-            # int8 in place (free: the epilogue is fully hidden), so the
-            # reconstruct contraction skips its xor+bitcast pass.
-            ctr = pk.mxu_crt_default()
-            r8 = pm.matmul_mod_u8(a8, b8, num_moduli, centered=ctr)
-            return pk.reconstruct_pallas(r8, sft_a, sft_b, num_moduli,
-                                         out_dtype, mxu=ctr, e_extra=alpha_e)
-        a8 = _encode_idx(a, sft_a, num_moduli, None)
-        b8 = _encode_idx(b, sft_b, num_moduli, None)
-        c32 = sg.slice_products(a8, b8)
-        r = sg.mod_reduce(c32, num_moduli)
-        return rec.reconstruct(r, sft_a, sft_b, num_moduli, out_dtype,
-                               alpha_e)
+    # named scopes label each phase's fusions in profiler traces
+    with jax.named_scope("encode"):
+        sft_a, sft_b = _select_sfts(a, b, num_moduli, fastmode)
+    if moduli_chunk is None or moduli_chunk >= num_moduli:
+        with jax.named_scope("encode"):
+            a8 = _encode_idx(a, sft_a, num_moduli, None)
+            b8 = _encode_idx(b, sft_b, num_moduli, None)
+        with jax.named_scope("slice_gemm"):
+            c32 = sg.slice_products(a8, b8)
+        with jax.named_scope("mod_reduce"):
+            r = sg.mod_reduce(c32, num_moduli)
+        with jax.named_scope("reconstruct"):
+            return rec.reconstruct(r, sft_a, sft_b, num_moduli, out_dtype,
+                                   alpha_e)
 
     # ---- moduli-chunked schedule (shifts already selected above:
     # they are chunk-independent) ----
@@ -210,88 +122,24 @@ def gemm_core(a: Operand, b: Operand, num_moduli: int, fastmode: bool,
     acc = None
     for j0, width in sched.chunks():
         idx = tuple(range(j0, j0 + width))
-        if use_pallas:
-            from ..pallas import kernels as pk
-            from ..pallas import matmul as pm
-
-            a8 = pk.encode_slices_pallas(a, sft_a, num_moduli, axis=1,
-                                         moduli_idx=idx)
-            b8 = pk.encode_slices_pallas(b, sft_b, num_moduli, axis=0,
-                                         moduli_idx=idx)
-            r8 = pm.matmul_mod_u8(a8, b8, num_moduli, moduli_idx=idx)
-            r = r8.astype(jnp.int32)
-        else:
-            a8 = _encode_idx(a, sft_a, num_moduli, idx)
-            b8 = _encode_idx(b, sft_b, num_moduli, idx)
-            c32 = sg.slice_products(a8, b8)
-            r = sg.mod_reduce(c32, num_moduli, idx)
+        a8 = _encode_idx(a, sft_a, num_moduli, idx)
+        b8 = _encode_idx(b, sft_b, num_moduli, idx)
+        c32 = sg.slice_products(a8, b8)
+        r = sg.mod_reduce(c32, num_moduli, idx)
         acc = rec.accumulate_weighted(r, num_moduli, idx, acc)
-    if use_pallas:
-        from ..pallas import kernels as pk
-
-        return pk.reconstruct_pallas(jnp.stack(acc, 0), sft_a, sft_b,
-                                     num_moduli, out_dtype,
-                                     input_kind="limbs", e_extra=alpha_e)
     return rec.finalize(acc, sft_a, sft_b, num_moduli, out_dtype, alpha_e)
 
 
 def gemm_core_panels(a: Operand, b: Operand, num_moduli: int, fastmode: bool,
-                     out_dtype: str, n_panel: int,
-                     use_pallas: bool | None = None, alpha_e: int = 0):
+                     out_dtype: str, n_panel: int, alpha_e: int = 0):
     """Column-panel schedule for problems whose full slice tensors exceed
-    HBM (e.g. 16384^3 needs ~17 GB one-shot on a 16 GB chip): A is encoded
-    once; B is encoded, multiplied, and reconstructed one n-panel at a
-    time, so peak residue memory scales with the panel width. Only the
-    fast path (per-column B statistics are panel-local, so panels are
-    independent and results are bit-identical to one-shot)."""
+    device memory: A is encoded once; B is encoded, multiplied, and
+    reconstructed one n-panel at a time, so peak residue memory scales with
+    the panel width. In fast mode per-column B statistics are panel-local,
+    so panels are independent and results are bit-identical to one-shot;
+    accurate-mode shifts depend on B, so A is re-encoded per panel."""
     _check_shapes(a, b)
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
     n = b.shape[1]
-    if use_pallas:
-        from ..pallas import kernels as pk
-        from ..pallas import matmul as pm
-        from ..pallas import pipelined as pp
-
-        sft_a = pk.fast_sft_pallas(a, num_moduli, axis=1) if fastmode else None
-        a8 = None
-        outs = []
-        for j0 in range(0, n, n_panel):
-            bp = b[:, j0:j0 + n_panel] if not isinstance(b, F64Bits) else \
-                F64Bits(b.hi[:, j0:j0 + n_panel], b.lo[:, j0:j0 + n_panel])
-            if fastmode:
-                sft_b = pk.fast_sft_pallas(bp, num_moduli, axis=0)
-            else:
-                sft_a, sft_b = accurate_sfts(a, bp, num_moduli,
-                                             use_pallas=True)
-                a8 = None  # accurate shifts depend on B: re-encode A
-            if a8 is None:
-                a8 = pk.encode_slices_pallas(a, sft_a, num_moduli, axis=1)
-            cfg = pp.choose_panels(a.shape[0], bp.shape[1], a.shape[1],
-                                   num_moduli) \
-                if (pp.pipeline_mode() and alpha_e == 0) else None
-            if cfg and out_dtype in ("f64", "f32"):
-                # per-column-panel m-pipeline: A encoded once and shared
-                # (re-encoded per panel in accurate mode, whose shifts
-                # depend on B); the reconstruct rider hides all but the
-                # last m-panel's CRT (bit-identical; pallas/pipelined.py)
-                outs.append(pp.gemm_pipelined(
-                    a, bp, num_moduli, kind=out_dtype,
-                    panel_m=cfg[0], bn=cfg[1],
-                    sfts=(sft_a, sft_b), a8=a8))
-                continue
-            b8 = pk.encode_slices_pallas(bp, sft_b, num_moduli, axis=0)
-            ctr = pk.mxu_crt_default()
-            r8 = pm.matmul_mod_u8(a8, b8, num_moduli, centered=ctr)
-            outs.append(pk.reconstruct_pallas(r8, sft_a, sft_b, num_moduli,
-                                              out_dtype, mxu=ctr,
-                                              e_extra=alpha_e))
-        if out_dtype == "f64":
-            return F64Bits(jnp.concatenate([o.hi for o in outs], axis=1),
-                           jnp.concatenate([o.lo for o in outs], axis=1))
-        return jnp.concatenate(outs, axis=1)
-    # jnp fallback: hoist the A statistics/encode out of the panel loop
-    # (fast mode only; accurate shifts depend on B and go per panel)
     outs = []
     a8 = None
     sft_a = _fast_sft_only(a, num_moduli, axis=1) if fastmode else None
@@ -316,18 +164,12 @@ def gemm_core_panels(a: Operand, b: Operand, num_moduli: int, fastmode: bool,
     return jnp.concatenate(outs, axis=1)
 
 
-def _select_sfts(a: Operand, b: Operand, num_moduli: int, fastmode: bool,
-                 use_pallas: bool):
+def _select_sfts(a: Operand, b: Operand, num_moduli: int, fastmode: bool):
     """Shift selection shared by the one-shot and moduli-chunked paths."""
-    if use_pallas and fastmode:
-        from ..pallas import kernels as pk
-
-        return (pk.fast_sft_pallas(a, num_moduli, axis=1),
-                pk.fast_sft_pallas(b, num_moduli, axis=0))
     if fastmode:
         return (_fast_sft_only(a, num_moduli, axis=1),
                 _fast_sft_only(b, num_moduli, axis=0))
-    return accurate_sfts(a, b, num_moduli, use_pallas=use_pallas)
+    return accurate_sfts(a, b, num_moduli)
 
 
 def _fast_sft_only(x: Operand, num_moduli: int, axis: int):
@@ -349,47 +191,11 @@ def _encode_idx(x: Operand, sft, num_moduli: int, idx):
 
 
 def gemm_phases(a: Operand, b: Operand, num_moduli: int, fastmode: bool,
-                out_dtype: str, use_pallas: bool | None = None):
-    """Staged variant returning per-phase callables for sync-based timing
-    (parity with the reference's 4-part breakdown, gemmul8.cu:10-18):
-    encode / int8 GEMMs / mod-reduce / reconstruct. On TPU the phases are
-    the same Pallas kernels the fused path runs (the mod-reduce is fused
-    into the matmul there, so phase 3 measures ~0 — noted in the CSV
-    semantics; the reference's conv_32i_2_8u is likewise a minor phase)."""
+                 out_dtype: str):
+    """Staged variant returning per-phase jitted callables for the
+    reference's 4-part breakdown (gemmul8.cu:10-18): encode / int8 GEMMs /
+    mod-reduce / reconstruct."""
     _check_shapes(a, b)
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-
-    if use_pallas:
-        from ..pallas import kernels as pk
-        from ..pallas import matmul as pm
-
-        @jax.jit
-        def phase_encode(a, b):
-            if fastmode:
-                sft_a = pk.fast_sft_pallas(a, num_moduli, axis=1)
-                sft_b = pk.fast_sft_pallas(b, num_moduli, axis=0)
-            else:
-                sft_a, sft_b = accurate_sfts(a, b, num_moduli,
-                                             use_pallas=True)
-            a8 = pk.encode_slices_pallas(a, sft_a, num_moduli, axis=1)
-            b8 = pk.encode_slices_pallas(b, sft_b, num_moduli, axis=0)
-            return a8, sft_a, b8, sft_b
-
-        @jax.jit
-        def phase_matmul(a8, b8):
-            return pm.matmul_mod_u8(a8, b8, num_moduli)
-
-        @jax.jit
-        def phase_mod(r8):
-            return r8  # fused into the matmul epilogue
-
-        @jax.jit
-        def phase_reconstruct(r, sft_a, sft_b):
-            return pk.reconstruct_pallas(r, sft_a, sft_b, num_moduli,
-                                         out_dtype)
-
-        return phase_encode, phase_matmul, phase_mod, phase_reconstruct
 
     @jax.jit
     def phase_encode(a, b):
@@ -408,7 +214,7 @@ def gemm_phases(a: Operand, b: Operand, num_moduli: int, fastmode: bool,
     def phase_mod(c32):
         return sg.mod_reduce(c32, num_moduli)
 
-    @partial(jax.jit, static_argnames=())
+    @jax.jit
     def phase_reconstruct(r, sft_a, sft_b):
         return rec.reconstruct(r, sft_a, sft_b, num_moduli, out_dtype)
 

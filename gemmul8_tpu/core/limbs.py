@@ -1,9 +1,9 @@
 """Multi-limb integer arithmetic on int32 arrays (16-bit limbs).
 
-The TPU-native substitute for the f64 / double-double arithmetic the
-reference uses in CRT reconstruction (/root/reference/GEMMul8/src/
-inverse_scaling.hpp:35-262): all values are little-endian lists of int32
-arrays each holding 16 bits, so every operation is exact VPU integer math.
+The substitute for the f64 / double-double arithmetic the reference uses in
+CRT reconstruction (GEMMul8 src/inverse_scaling.hpp:35-262): all values are
+little-endian lists of int32 arrays each holding 16 bits, so every
+operation is exact elementwise integer math.
 
 Conventions: limbs may temporarily exceed 16 bits (redundant representation)
 until `carry_propagate` is called; canonical limbs are in [0, 0xFFFF].
@@ -215,9 +215,8 @@ def dropped_nonzero(limbs: Sequence[jax.Array], u: jax.Array) -> jax.Array:
 
 def msb_position(limbs: Sequence[jax.Array]) -> jax.Array:
     """Bit position of the most significant set bit (value >= 0; returns -1
-    for zero). lax.clz on each canonical 16-bit limb (lowers to one VPU op
-    through Mosaic — measured, scripts/probe_clz.py): per limb the scan is
-    clz + compare + select, vs ~6 ops for the earlier f32-exponent trick.
+    for zero). lax.clz on each canonical 16-bit limb: per limb the scan is
+    clz + compare + select, vs ~6 ops for an f32-exponent trick.
     Exact for any int32 limb value (no rounding involved)."""
     p = jnp.full_like(limbs[0], -1)
     for i, c in enumerate(limbs):

@@ -1,10 +1,10 @@
 """Fast exact modular reduction by small constant moduli.
 
-Mosaic/VPU has no cheap integer division; jnp's `%` lowers to a costly
+Integer division is slow on vector units; jnp's `%` lowers to a costly
 sequence. These helpers compute x mod m exactly with a biased-down f32
-quotient estimate plus conditional fixups — the TPU-native equivalent of
-the reference's Barrett `__mulhi(x, 2^32/m)` reduction
-(/root/reference/GEMMul8/src/conv_32i_2_8u.hpp:25-56). Exactness argument
+quotient estimate plus conditional fixups — the equivalent of the
+reference's Barrett `__mulhi(x, 2^32/m)` reduction
+(GEMMul8 src/conv_32i_2_8u.hpp:25-56). Exactness argument
 is in each function; fixup counts are conservative.
 """
 

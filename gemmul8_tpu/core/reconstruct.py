@@ -4,15 +4,14 @@ Recovers C_ij = (sum_j' w_j' * r_j' mod M, centered) * 2^-(sftA_i + sftB_j)
 from the per-modulus residues of the slice products, exactly rounded
 (round-to-nearest-even) to the target dtype.
 
-TPU-native replacement for the reference's f64/double-double CRT kernels
-(/root/reference/GEMMul8/src/inverse_scaling.hpp:35-1005): instead of
+Replacement for the reference's f64/double-double CRT kernels
+(GEMMul8 src/inverse_scaling.hpp:35-1005): instead of
 floating-point NMi weights with mod-M recentering in double-double, we
 accumulate the full integer X = sum w_j * r_j in 16-bit int32 limbs (exact),
 reduce mod M with a float-estimated quotient plus exact correction steps,
 center to (-M/2, M/2), and round the scaled result directly into IEEE-754
 bit patterns.  This is exact — strictly tighter than the reference's FP
-reconstruction — and is all int32 VPU work, which is what the TPU is good at
-when the MXU is busy with the next slice batch.
+reconstruction — and is all elementwise int32 work that XLA fuses.
 """
 
 from __future__ import annotations
@@ -51,7 +50,7 @@ def accumulate_weighted(r: jax.Array, num_moduli: int, moduli_idx=None,
         rj = r[jj]
         for l in range(nl):
             wl = int(w[j, l])
-            if wl == 1:      # skip the multiply (int32 mul is a VPU op)
+            if wl == 1:      # skip the multiply
                 out[l] = out[l] + rj
             elif wl:
                 out[l] = out[l] + rj * _I32(wl)
@@ -64,7 +63,7 @@ def _mod_m_centered(x, num_moduli: int):
     """Reduce limbs x (0 <= x < 255*L*M) mod M and center.
 
     x may be CANONICAL (16-bit limbs) or REDUNDANT with each nonnegative
-    limb < 2^29 (the MXU digit-assembly path skips its carry pass) — the
+    limb < 2^29 (a digit assembly that skips its carry pass) — the
     quotient budget below covers both.
     Returns (mag_limbs, neg) with value = (-1)^neg * mag, mag <= M/2."""
     nl = len(x)
@@ -86,7 +85,7 @@ def _mod_m_centered(x, num_moduli: int):
     # division is folded into one compile-time reciprocal constant rounded
     # TOWARD ZERO, so rinv <= (1 - 2^-18)/mf exactly and the only runtime
     # rounding on the safe side is the single product (2^-24 < margin) —
-    # saves the VPU divide (several Newton steps) per element.
+    # saves a divide (several Newton steps) per element.
     rinv = float(np.nextafter(np.float32((1.0 - 2.0 ** -18) / mf),
                               np.float32(0.0)))
     # no max(t_est, 0) needed: xf >= 0 and rinv > 0, so the floor is >= 0

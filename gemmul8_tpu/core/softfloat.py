@@ -1,10 +1,10 @@
 """Exact-rounded IEEE-754 binary64 arithmetic on bit patterns (softfloat).
 
-TPU has no exact f64 compute, but the alpha/beta GEMM epilogue
-(C = alpha*AB + beta*C, reference inverse_scaling.hpp:269-820 epilogue
-variants) needs true f64 semantics. These add/mul operate on F64Bits with
-pure int32 VPU ops: decompose -> limb arithmetic -> round-to-nearest-even
-via the same normalization/rounding core the CRT reconstruction uses
+The alpha/beta GEMM epilogue (C = alpha*AB + beta*C, reference
+inverse_scaling.hpp:269-820 epilogue variants) works on the F64Bits the
+reconstruction produces and needs true f64 semantics on any backend. These
+add/mul operate on F64Bits with pure int32 ops: decompose -> limb
+arithmetic -> round-to-nearest-even via the same normalization/rounding core the CRT reconstruction uses
 (reconstruct._round_to_float), so results are correctly rounded, matching
 CPU f64 bit-for-bit (asserted in tests/test_softfloat.py).
 

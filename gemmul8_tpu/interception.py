@@ -1,6 +1,6 @@
 """Matmul interception: route jnp matmuls through the emulator.
 
-TPU-native analog of the reference hijack libraries' LD_PRELOAD shims
+The JAX analog of the reference hijack libraries' LD_PRELOAD shims
 (ozIMMU_EF/src/cublas.cu:283-300 re-exporting cublasDgemm_v2/Zgemm_v2;
 cuMpSGEMM's rule-callback dispatch, src/default_cumpsgemm_rule.cu:6-50):
 inside `override_matmuls()` every eligible `jnp.matmul` / `jnp.dot` /
@@ -25,7 +25,6 @@ from typing import Callable, Optional
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from . import config as cfg
 from . import tables
@@ -157,16 +156,6 @@ def override_matmuls(num_moduli: Optional[int] = None,
         # the call through to native XLA
         return (a.dtype in _ELIGIBLE and b.dtype in _ELIGIBLE)
 
-    def _fence(out):
-        # a true execution fence: block_until_ready + 1-element readback
-        # (remote-TPU runtimes can return from block_until_ready early)
-        leaves = [t for t in jax.tree_util.tree_leaves(out)
-                  if hasattr(t, "block_until_ready")]
-        for t in leaves:
-            t.block_until_ready()
-        if leaves:
-            np.asarray(jax.device_get(leaves[0].ravel()[0]))
-
     def _route(a, b, orig, op_a="N", op_b="N", **kwargs):
         global _LAST_FUNC
         if in_route[0] or kwargs or not _eligible(a, b):
@@ -191,7 +180,7 @@ def override_matmuls(num_moduli: Optional[int] = None,
                 label = f"emulate-{nm}"
             if prof:
                 if not traced:
-                    _fence(out)  # record wall time, not dispatch time
+                    jax.block_until_ready(out)  # wall time, not dispatch
                 _PROFILE_LOG.append(CallRecord(
                     m, n, k, str(a.dtype),
                     label + (":traced" if traced else ""),

@@ -1,11 +1,11 @@
 """Mutable-precision SGEMM on low-precision matrix units (cuMpSGEMM analog).
 
-The reference suite includes cuMpSGEMM (/root/reference/cuMpSGEMM): SGEMM/
+The reference suite includes cuMpSGEMM: SGEMM/
 CGEMM on FP16/TF32 Tensor Cores with Ootomo-style error correction (TCEC),
 exponent-statistics-driven automatic precision selection, and dynamic
 scaling (README.md:1-57, src/exp_stats.cu, src/dynamic_scaling.cu).
 
-TPU analog: the MXU's fast input format is bfloat16. Error-corrected f32
+Here the fast matrix-unit input format is bfloat16. Error-corrected f32
 matmul = split each f32 operand into leading/residual bf16 parts and sum
 the cross products ("bf16x3": hi*hi + hi*lo + lo*hi — the TCEC recipe with
 bf16 instead of FP16; "bf16x6" adds the second-order terms for full-f32
@@ -31,7 +31,6 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 
 class Mode(enum.Enum):
@@ -100,8 +99,8 @@ def _scaled_bf16x3(a, b):
     unscale. Protects the residual split from underflow at extreme
     magnitudes."""
     # clamp with the smallest NORMAL f32 (1e-38 is subnormal and flushes
-    # to zero on TPU, sending log2 to -inf and poisoning all-zero rows
-    # with 0 * inf = NaN)
+    # to zero where denormals are off, sending log2 to -inf and poisoning
+    # all-zero rows with 0 * inf = NaN)
     tiny = jnp.float32(jnp.finfo(jnp.float32).tiny)
     ea = jnp.floor(jnp.log2(jnp.maximum(
         jnp.max(jnp.abs(a), axis=-1, keepdims=True), tiny)))
@@ -120,9 +119,9 @@ _CUSTOM_MX2X2 = True
 
 
 def enable_custom_gemm_Mx2x2() -> None:
-    """Route (m, 2) x (2, 2) GEMMs through the skinny VPU path (default;
-    the cuGEMM-Mx2x2 submodule analog — cuBLAS, like the MXU, handles
-    these degenerate shapes poorly; cuMpSGEMM/python/src/main.cpp:42)."""
+    """Route (m, 2) x (2, 2) GEMMs through the skinny elementwise path
+    (default; the cuGEMM-Mx2x2 submodule analog — cuBLAS handles these
+    degenerate shapes poorly; cuMpSGEMM/python/src/main.cpp:42)."""
     global _CUSTOM_MX2X2
     _CUSTOM_MX2X2 = True
 
@@ -133,9 +132,9 @@ def disable_custom_gemm_Mx2x2() -> None:
 
 
 def gemm_Mx2x2(a: jax.Array, b: jax.Array):
-    """GEMM-(2^p, 2, 2): a (..., m, 2) x b (..., 2, 2) as explicit VPU
-    broadcast-multiply-adds — a k=2, n=2 contraction wastes >=98% of the
-    128x128 MXU, so the elementwise form is the TPU equivalent of the
+    """GEMM-(2^p, 2, 2): a (..., m, 2) x b (..., 2, 2) as explicit
+    broadcast-multiply-adds — a k=2, n=2 contraction wastes nearly all of
+    a matrix unit's tile, so the elementwise form stands in for the
     reference's custom skinny kernels (cuGEMM-Mx2x2/README.md:1-8; real
     and complex, plain or strided-batch via leading batch dims)."""
     assert a.shape[-1] == 2 and b.shape[-2:] == (2, 2), (a.shape, b.shape)
@@ -155,7 +154,7 @@ def mp_gemm(a: jax.Array, b: jax.Array, mode: Mode = Mode.AUTO,
     a = jnp.asarray(a, jnp.float32)
     b = jnp.asarray(b, jnp.float32)
     if _CUSTOM_MX2X2 and a.shape[-1] == 2 and b.shape[-2:] == (2, 2):
-        # f32 VPU mult-adds round once each — at least the accuracy of
+        # f32 mult-adds round once each — at least the accuracy of
         # every mode (incl. SCALING's 2^s round trip), never worse
         return gemm_Mx2x2(a, b)
     if mode == Mode.NATIVE:
@@ -310,20 +309,13 @@ def default_handle() -> ExpStatsHandle:
 
 
 def mp_cgemm(a, b, mode: Mode = Mode.BF16X3):
-    """Complex64 mutable-precision GEMM via 4 real mp_gemms.
-
-    Re/Im split happens on host for numpy inputs: some TPU runtimes cannot
-    hold complex64 device arrays at all, so the complex view must never
-    touch the device (the result is assembled on host there too)."""
-    an, bn = np.asarray(a), np.asarray(b)
-    ar = jnp.asarray(an.real, jnp.float32)
-    ai = jnp.asarray(an.imag, jnp.float32)
-    br = jnp.asarray(bn.real, jnp.float32)
-    bi = jnp.asarray(bn.imag, jnp.float32)
+    """Complex64 mutable-precision GEMM via 4 real mp_gemms."""
+    a = jnp.asarray(a, jnp.complex64)
+    b = jnp.asarray(b, jnp.complex64)
+    ar, ai = jnp.real(a), jnp.imag(a)
+    br, bi = jnp.real(b), jnp.imag(b)
     rr = mp_gemm(ar, br, mode)
     ii = mp_gemm(ai, bi, mode)
     ri = mp_gemm(ar, bi, mode)
     ir = mp_gemm(ai, br, mode)
-    if jax.default_backend() == "cpu":
-        return jax.lax.complex(rr - ii, ri + ir)
-    return np.asarray(rr - ii) + 1j * np.asarray(ri + ir)
+    return jax.lax.complex(rr - ii, ri + ir)

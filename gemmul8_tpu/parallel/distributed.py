@@ -1,19 +1,21 @@
-"""Mesh-sharded emulated GEMM over TPU pod slices.
+"""Mesh-sharded emulated GEMM.
 
 The reference is strictly single-GPU (SURVEY.md §2.5 — no NCCL/MPI anywhere);
-this module is the TPU-native scaling design it lacks: operands are 2D-
-sharded over a Mesh('x','y'), each shard encodes its local residue slices
-(with shift statistics psum/pmax'd over the k-sharded axis so every shard
-picks the same globally-valid shift), int8 slice products run per shard on
-the local MXU, and the k-partial int32 products are combined with a single
-exact integer `psum_scatter` over ICI **in residue space** — communication
-stays integer-typed and CRT reconstruction happens exactly once, on the
-shard that owns the output tile.
+this module is the scaling design it lacks: operands are 2D-sharded over a
+Mesh('x','y'), each shard encodes its local residue slices (with shift
+statistics psum/pmax'd over the k-sharded axis so every shard picks the
+same globally-valid shift), int8 slice products run per shard, and the
+k-partial int32 products are combined with a single exact integer
+`psum_scatter` **in residue space** — communication stays integer-typed and
+CRT reconstruction happens exactly once, on the shard that owns the output
+tile. Cards joined all to all (NVLink) reach each other at one rate, so the
+mesh shape follows the algorithm alone: m over x, k over y.
 
 Sharding layout (forward step):
   A (m, k)  -> P('x', 'y')     row blocks x, k blocks y
-  B (k, n)  -> P('y', None)    k blocks y (n replicated within a row of the
-                               mesh; the scatter re-shards n over y)
+  B (k, n)  -> P('y', 'x')     k blocks y, n blocks x (re-gathered over x
+                               inside the step; the scatter re-shards n
+                               over y)
   C (m, n)  -> P('x', 'y')
 
 Exactness across shards: the int32 dot-product bound is on the *global* k
@@ -77,22 +79,7 @@ def make_mesh(n_devices: Optional[int] = None, shape=None,
     return jax.make_mesh(shape, axis_names, devices=devs)
 
 
-def _encode_local(x, num_moduli, axis, axis_name, use_pallas=False,
-                  n_shards: int = 1):
-    if use_pallas:
-        # Pallas kernels per shard: raw stats, combined exactly over the
-        # k-sharded axis (pmax / power-of-two-rescaled psum) so every shard
-        # picks the same globally-valid shift, then the fused encode kernel.
-        from ..pallas import kernels as pk
-
-        mant_bits = 53 if isinstance(x, F64Bits) else 24
-        k_total = x.shape[axis] * n_shards
-        emax, nrm2, af = pk.fast_sft_pallas(x, num_moduli, axis,
-                                            return_stats=True)
-        emax, nrm2, af = enc.combine_stats(emax, nrm2, af, axis_name)
-        sft = enc.sft_from_stats(emax, nrm2, af, k_total, num_moduli,
-                                 mant_bits)
-        return pk.encode_slices_pallas(x, sft, num_moduli, axis), sft
+def _encode_local(x, num_moduli, axis, axis_name):
     if isinstance(x, F64Bits):
         return enc.encode_fast_f64(x, num_moduli, axis, axis_name)
     return enc.encode_fast_f32(x, num_moduli, axis, axis_name)
@@ -100,7 +87,7 @@ def _encode_local(x, num_moduli, axis, axis_name, use_pallas=False,
 
 def _gather_b(b):
     """Reassemble the full-n local B block from the P('y','x') 2D shards:
-    an all_gather over x rides ICI, transient (freed after encode). The
+    an all_gather over x, transient (freed after encode). The
     PERSISTENT per-shard footprint is the true 2D shard — the L-times-
     amplified int8 slice tensors are bounded by the n_panel schedule, not
     by full n (VERDICT r1: replicated-B memory wall)."""
@@ -145,19 +132,13 @@ def _strided_panel(x, s: int, w: int, ny: int):
     return f(x)
 
 
-def _encode_with_sft_op(x, sft, num_moduli: int, use_pallas: bool):
-    if use_pallas:
-        from ..pallas import kernels as pk
-
-        return pk.encode_slices_pallas(x, sft, num_moduli,
-                                       axis=1 if sft.shape[1] == 1 else 0)
+def _encode_with_sft_op(x, sft, num_moduli: int):
     if isinstance(x, F64Bits):
         return enc.encode_accurate_f64(x, sft, num_moduli)
     return enc.encode_accurate_f32(x, sft, num_moduli)
 
 
-def _scatter_reconstruct(c32_partial, sft_a, sft_b, num_moduli, out_kind,
-                         use_pallas):
+def _scatter_reconstruct(c32_partial, sft_a, sft_b, num_moduli, out_kind):
     """Exact integer reduce-scatter of the k-partials over 'y' (scattering
     the n axis) + per-shard reconstruct of the owned tile."""
     c32 = jax.lax.psum_scatter(c32_partial, "y", scatter_dimension=2,
@@ -166,36 +147,27 @@ def _scatter_reconstruct(c32_partial, sft_a, sft_b, num_moduli, out_kind,
     j = jax.lax.axis_index("y").astype(jnp.int32)
     sft_b_tile = jax.lax.dynamic_slice(
         sft_b, (jnp.int32(0), j * jnp.int32(n_local)), (1, n_local))
-    if use_pallas:
-        from ..pallas import kernels as pk
-
-        return pk.reconstruct_pallas(c32, sft_a, sft_b_tile, num_moduli,
-                                     out_kind)
     r = sg.mod_reduce(c32, num_moduli)
     return rec.reconstruct(r, sft_a, sft_b_tile, num_moduli, out_kind)
 
 
 def _sharded_body(a, b, num_moduli: int, out_kind: str, ny: int,
-                  use_pallas: bool = False, fastmode: bool = True,
-                  n_panel: int | None = None):
+                  fastmode: bool = True, n_panel: int | None = None):
     """Per-shard body (inside shard_map). a: local (m/x, k/y); b: local 2D
     shard (k/y, n/x). Returns local C tile (m/x, n/y).
 
     n_panel: encode/multiply/scatter B in n-panels so the L-amplified int8
     slice tensors never exceed (L, k/y, n_panel) — the low-memory schedule
-    for beyond-HBM n (fast mode only: column stats are panel-local there;
+    for n beyond device memory (fast mode only: column stats are panel-local there;
     accurate-mode row shifts need the full-n product max)."""
     b_full = _gather_b(b)
     if fastmode:
-        a8, sft_a = _encode_local(a, num_moduli, axis=1, axis_name="y",
-                                  use_pallas=use_pallas, n_shards=ny)
+        a8, sft_a = _encode_local(a, num_moduli, axis=1, axis_name="y")
         if n_panel is None:
             b8, sft_b = _encode_local(b_full, num_moduli, axis=0,
-                                      axis_name="y", use_pallas=use_pallas,
-                                      n_shards=ny)
+                                      axis_name="y")
             return _scatter_reconstruct(sg.slice_products(a8, b8), sft_a,
-                                        sft_b, num_moduli, out_kind,
-                                        use_pallas)
+                                        sft_b, num_moduli, out_kind)
         n = b_full.shape[1]
         if n_panel % ny or (n // ny) % (n_panel // ny):
             raise ValueError(
@@ -204,11 +176,10 @@ def _sharded_body(a, b, num_moduli: int, out_kind: str, ny: int,
         outs = []
         for s in range(n // n_panel):
             bp = _strided_panel(b_full, s, w, ny)
-            b8, sft_b = _encode_local(bp, num_moduli, axis=0, axis_name="y",
-                                      use_pallas=use_pallas, n_shards=ny)
+            b8, sft_b = _encode_local(bp, num_moduli, axis=0, axis_name="y")
             outs.append(_scatter_reconstruct(
                 sg.slice_products(a8, b8), sft_a, sft_b, num_moduli,
-                out_kind, use_pallas))
+                out_kind))
         if out_kind == "f64":
             return F64Bits(jnp.concatenate([o.hi for o in outs], axis=1),
                            jnp.concatenate([o.lo for o in outs], axis=1))
@@ -217,15 +188,14 @@ def _sharded_body(a, b, num_moduli: int, out_kind: str, ny: int,
     if n_panel is not None:
         raise NotImplementedError("n_panel requires fastmode")
     sft_a, sft_b = _accurate_sfts_sharded(a, b_full, num_moduli)
-    a8 = _encode_with_sft_op(a, sft_a, num_moduli, use_pallas)
-    b8 = _encode_with_sft_op(b_full, sft_b, num_moduli, use_pallas)
+    a8 = _encode_with_sft_op(a, sft_a, num_moduli)
+    b8 = _encode_with_sft_op(b_full, sft_b, num_moduli)
     return _scatter_reconstruct(sg.slice_products(a8, b8), sft_a, sft_b,
-                                num_moduli, out_kind, use_pallas)
+                                num_moduli, out_kind)
 
 
 def _sharded_body_complex(a_re, a_im, b_re, b_im, num_moduli: int,
-                          out_kind: str, ny: int, use_pallas: bool = False,
-                          compute_type=None):
+                          out_kind: str, compute_type=None):
     """Complex strategies under the mesh, all three first-class (parity
     with gemmul8.cu:579-1052; VERDICT r4 item 5):
 
@@ -274,7 +244,7 @@ def _sharded_body_complex(a_re, a_im, b_re, b_im, num_moduli: int,
         c32_partial = sg.slice_products(a_blk, b_blk)  # (L, 2m/x, n)
         sft_a2 = jnp.concatenate([sft_a, sft_a], axis=0)
         return split(_scatter_reconstruct(c32_partial, sft_a2, sft_b,
-                                          num_moduli, out_kind, use_pallas))
+                                          num_moduli, out_kind))
     if compute_type == ComputeType.COMPLEX_CLASSIC_MULT:
         rr = sg.slice_products(a8r, b8r)
         ii = sg.slice_products(a8i, b8i)
@@ -295,13 +265,12 @@ def _sharded_body_complex(a_re, a_im, b_re, b_im, num_moduli: int,
     c2 = jnp.concatenate([re_part, im_part], axis=1)
     sft_a2 = jnp.concatenate([sft_a, sft_a], axis=0)
     return split(_scatter_reconstruct(c2, sft_a2, sft_b, num_moduli,
-                                      out_kind, use_pallas))
+                                      out_kind))
 
 
 @lru_cache(maxsize=None)
 def _build_sharded(mesh, num_moduli: int, out_kind: str, is_f64_a: bool,
-                   is_f64_b: bool, use_pallas: bool = False,
-                   fastmode: bool = True, n_panel=None):
+                   is_f64_b: bool, fastmode: bool = True, n_panel=None):
     ny = mesh.shape["y"]
     a_spec = F64Bits(P("x", "y"), P("x", "y")) if is_f64_a else P("x", "y")
     b_spec = F64Bits(P("y", "x"), P("y", "x")) if is_f64_b else P("y", "x")
@@ -311,8 +280,7 @@ def _build_sharded(mesh, num_moduli: int, out_kind: str, is_f64_a: bool,
         out_spec = P("x", "y")
     fn = jax.shard_map(
         partial(_sharded_body, num_moduli=num_moduli, out_kind=out_kind,
-                ny=ny, use_pallas=use_pallas, fastmode=fastmode,
-                n_panel=n_panel),
+                ny=ny, fastmode=fastmode, n_panel=n_panel),
         mesh=mesh, in_specs=(a_spec, b_spec), out_specs=out_spec,
         check_vma=False)
     return jax.jit(fn)
@@ -320,13 +288,12 @@ def _build_sharded(mesh, num_moduli: int, out_kind: str, is_f64_a: bool,
 
 def gemm_sharded(a, b, mesh: Mesh, num_moduli: int = 14,
                  out_dtype: Optional[str] = None,
-                 use_pallas: Optional[bool] = None,
                  fastmode: bool = True, n_panel: Optional[int] = None):
     """Emulated GEMM 2D-sharded over `mesh`.
 
     a: (m, k) F64Bits or f32 array; b: (k, n) same — both operands are
     2D-sharded (A P('x','y'), B P('y','x')); inside the step B's n axis
-    is re-gathered over ICI transiently. m must divide by mesh.x, k by
+    is re-gathered over x transiently. m must divide by mesh.x, k by
     mesh.y, n by mesh.x and mesh.y. fastmode=False runs the accurate
     ('int8tc') shift selection with its magnitude GEMM psum'd over the
     k axis. n_panel bounds the per-shard slice-tensor footprint (fast
@@ -342,10 +309,8 @@ def gemm_sharded(a, b, mesh: Mesh, num_moduli: int = 14,
         raise ValueError(f"shapes ({m},{k},{n}) must divide mesh {nx}x{ny}")
     is64a, is64b = isinstance(a, F64Bits), isinstance(b, F64Bits)
     out_kind = out_dtype or ("f64" if (is64a or is64b) else "f32")
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-    fn = _build_sharded(mesh, num_moduli, out_kind, is64a, is64b, use_pallas,
-                        fastmode, n_panel)
+    fn = _build_sharded(mesh, num_moduli, out_kind, is64a, is64b, fastmode,
+                        n_panel)
     # place operands
     a_sh = jax.device_put(a, _sharding_for(mesh, P("x", "y"), is64a))
     b_sh = jax.device_put(b, _sharding_for(mesh, P("y", "x"), is64b))
@@ -354,9 +319,7 @@ def gemm_sharded(a, b, mesh: Mesh, num_moduli: int = 14,
 
 @lru_cache(maxsize=None)
 def _build_sharded_complex(mesh, num_moduli: int, out_kind: str,
-                           is_f64_a: bool, is_f64_b: bool,
-                           use_pallas: bool = False, compute_type=None):
-    ny = mesh.shape["y"]
+                           is_f64_a: bool, is_f64_b: bool, compute_type=None):
     part_a = (lambda s: F64Bits(s, s)) if is_f64_a else (lambda s: s)
     part_b = (lambda s: F64Bits(s, s)) if is_f64_b else (lambda s: s)
     a_spec = part_a(P("x", "y"))
@@ -367,8 +330,7 @@ def _build_sharded_complex(mesh, num_moduli: int, out_kind: str,
         out_spec = P("x", "y")
     fn = jax.shard_map(
         partial(_sharded_body_complex, num_moduli=num_moduli,
-                out_kind=out_kind, ny=ny, use_pallas=use_pallas,
-                compute_type=compute_type),
+                out_kind=out_kind, compute_type=compute_type),
         mesh=mesh, in_specs=(a_spec, a_spec, b_spec, b_spec),
         out_specs=(out_spec, out_spec), check_vma=False)
     return jax.jit(fn)
@@ -376,7 +338,6 @@ def _build_sharded_complex(mesh, num_moduli: int, out_kind: str,
 
 def gemm_sharded_complex(a, b, mesh: Mesh, num_moduli: int = 14,
                          out_dtype: Optional[str] = None,
-                         use_pallas: Optional[bool] = None,
                          compute_type=None):
     """Complex emulated GEMM sharded over `mesh` (fast mode): operands are
     complex numpy arrays or canonical (re, im) tuples — widths may DIFFER
@@ -409,10 +370,8 @@ def gemm_sharded_complex(a, b, mesh: Mesh, num_moduli: int = 14,
     is64a = isinstance(a_re, F64Bits)
     is64b = isinstance(b_re, F64Bits)
     out_kind = out_dtype or ("f64" if "c128" in (kind_a, kind_b) else "f32")
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
     fn = _build_sharded_complex(mesh, num_moduli, out_kind, is64a, is64b,
-                                use_pallas, compute_type)
+                                compute_type)
     pa = _sharding_for(mesh, P("x", "y"), is64a)
     pb = _sharding_for(mesh, P("y", "x"), is64b)
     return fn(jax.device_put(a_re, pa), jax.device_put(a_im, pa),

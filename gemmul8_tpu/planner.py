@@ -1,6 +1,6 @@
 """Workspace / memory planner.
 
-Parity with gemmul8::workSize (/root/reference/GEMMul8/src/gemmul8.cu:27-147)
+Parity with gemmul8::workSize (GEMMul8 src/gemmul8.cu:27-147)
 — the reference carves A8i | B8i | C8u | C32i | sftA | sftB out of one user
 buffer; under JAX/XLA the allocator owns memory, so this planner (a) reports
 the expected peak auxiliary footprint for capacity planning, and (b) decides
@@ -19,33 +19,27 @@ from . import tables
 from .types import ComputeType
 
 
-def _ceil_to(x: int, a: int) -> int:
-    return (x + a - 1) // a * a
-
-
 def workspace_bytes(m: int, n: int, k: int, num_moduli: int,
                     compute_type: ComputeType = ComputeType.REAL_DEFAULT) -> int:
     """Expected peak auxiliary bytes for one emulated GEMM call.
 
-    Models the one-shot portable (jnp) schedule, which is the LARGER of
-    the two paths: it materializes the full (L, m, n) int32 slice-product
-    batch and int32 residues (the fused Pallas path writes uint8 residues
-    straight out of the matmul epilogue and never holds c32). Per
-    strategy it counts every simultaneously-live tensor batch:
+    Models the one-shot schedule, which materializes the full (L, m, n)
+    int32 slice-product batch and int32 residues. Operands are held at
+    their own shapes (the plain path pads nothing; any padding the int8
+    GEMM library does internally is its own workspace). Per strategy it
+    counts every simultaneously-live tensor batch:
     REAL 1 slice set/side, 1 product batch; CLASSIC 2 slice sets/side
     (re, im), 4 product batches (rr, ii, ri, ir); KARATSUBA 3 slice
     sets/side (re, im, re+im), 3 product batches; BIG_MATRIX doubled
     dims, 1 of each, plus the pre-concat re/im slices of A that co-live
     with the assembled block operand."""
-    k_pad = _ceil_to(k, 128)   # TPU lane alignment (reference pads to 16)
-    m_pad = _ceil_to(m, 8)
-    n_pad = _ceil_to(n, 8)
+    mm, kk, nn = m, k, n   # complex big-matrix doubles mm and kk below
     L = num_moduli
     extra_slices = 0
     if compute_type == ComputeType.COMPLEX_BIG_MATRIX_ENCODE:
         # a8r/a8i/-a8i co-live with the assembled (L, 2m, 2k) block
-        extra_slices = 3 * L * m_pad * k_pad
-        m_pad, k_pad = 2 * m_pad, 2 * k_pad
+        extra_slices = 3 * L * mm * kk
+        mm, kk = 2 * mm, 2 * kk
         slice_sets, prod_batches, resid_batches = 1, 1, 1
     elif compute_type == ComputeType.COMPLEX_CLASSIC_MULT:
         slice_sets, prod_batches, resid_batches = 2, 4, 2
@@ -53,12 +47,12 @@ def workspace_bytes(m: int, n: int, k: int, num_moduli: int,
         slice_sets, prod_batches, resid_batches = 3, 3, 2
     else:
         slice_sets, prod_batches, resid_batches = 1, 1, 1
-    slices = (L * (m_pad * k_pad + k_pad * n_pad) * slice_sets
+    slices = (L * (mm * kk + kk * nn) * slice_sets
               + extra_slices)                                          # int8
-    products = prod_batches * L * m_pad * n_pad * 4                    # int32
-    residues = resid_batches * L * m_pad * n_pad * 4                   # int32
-    limbs = tables.num_limbs(num_moduli) * m_pad * n_pad * 4           # int32
-    sft = (m_pad + n_pad) * 4
+    products = prod_batches * L * mm * nn * 4                    # int32
+    residues = resid_batches * L * mm * nn * 4                   # int32
+    limbs = tables.num_limbs(num_moduli) * mm * nn * 4           # int32
+    sft = (mm + nn) * 4
     return slices + products + residues + limbs + sft
 
 
@@ -90,10 +84,8 @@ def plan_schedule(m: int, n: int, k: int, num_moduli: int,
     # per materialized modulus: int8 A and B slices, plus the int32
     # slice-product AND the int32 residue tensor, which co-live on the
     # chunked jnp path (core/gemm.py) — 8 bytes per output element
-    per_modulus = (_ceil_to(m, 8) * _ceil_to(k, 128)
-                   + _ceil_to(k, 128) * _ceil_to(n, 8)
-                   + _ceil_to(m, 8) * _ceil_to(n, 8) * 8)
-    fixed = tables.num_limbs(num_moduli) * _ceil_to(m, 8) * _ceil_to(n, 8) * 4
+    per_modulus = m * k + k * n + m * n * 8
+    fixed = tables.num_limbs(num_moduli) * m * n * 4
     chunk = max(1, (budget_bytes - fixed) // max(per_modulus, 1))
     return ModuliSchedule(num_moduli, min(int(chunk), num_moduli))
 

@@ -6,11 +6,11 @@ power-of-two residues, and the shift-selection thresholds for fast
 ("vecnorm") and accurate ("int8tc") encode modes.
 
 Reference behavior being matched (not copied): the moduli set and the
-threshold formulas documented for /root/reference/GEMMul8/src/table.hpp
+threshold formulas documented for GEMMul8 src/table.hpp
 (moduli at table.hpp:27-48, thresholds at table.hpp:141-191, CRT weights at
 table.hpp:195-826).  Our representation is different: instead of the
 reference's double / double-double weight tables we keep arbitrary-precision
-integers and decompose them into int32 limbs sized for the TPU's VPU, plus
+integers and decompose them into int32 limbs for exact elementwise math, plus
 float64 / double-float views for the floating-point reconstruction path.
 """
 
@@ -109,7 +109,7 @@ def _log2_bigint(x: int) -> float:
 
 
 # ---------------------------------------------------------------------------
-# Limb decompositions (for the exact integer CRT reconstruction on TPU).
+# Limb decompositions (for the exact integer CRT reconstruction).
 #
 # We represent big integers in base 2^LIMB_BITS with int32 limbs.  With
 # LIMB_BITS = 16: weight limbs < 2^16, residues <= 255, so each partial

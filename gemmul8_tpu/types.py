@@ -1,15 +1,15 @@
-"""Public types for the TPU-native Ozaki-II GEMM emulation engine.
+"""Public types for the Ozaki-II GEMM emulation engine.
 
 Mirrors the capability surface of the reference public header
-(/root/reference/GEMMul8/include/gemmul8.hpp:7-22: computeType_t, workSize,
+(GEMMul8 include/gemmul8.hpp:7-22: computeType_t, workSize,
 gemm<TA,TB,TC>), re-expressed for JAX.
 
-TPU specifics: TPU has no native float64 — XLA stores f64 arrays exactly but
-*computes* on them in double-float (2xf32) emulation, which is not exact.
-This framework therefore carries FP64 data as explicit bit patterns
-(`F64Bits`: hi/lo uint32 arrays) through the whole compute path; all encode /
-reconstruct arithmetic is exact int32 work on the VPU.  On CPU backends,
-native float64 arrays are accepted and converted for convenience.
+FP64 data travels through the compute path as explicit bit patterns
+(`F64Bits`: hi/lo uint32 arrays): every encode / reconstruct step is exact
+int32 work, so the result does not depend on the device's float64 unit and
+is bit-identical across backends. Native float64 arrays are accepted and
+returned wherever JAX runs with x64 enabled (`backend_has_f64`); the
+bits <-> f64 conversion is a bitcast on the device.
 """
 
 from __future__ import annotations
@@ -70,21 +70,42 @@ class C64Bits(NamedTuple):
         return self.re.hi.shape
 
 
-def f64_to_bits(x) -> F64Bits:
-    """Convert an f64 array (numpy or jax-on-a-native-f64-backend) to F64Bits.
+def backend_has_f64() -> bool:
+    """Whether float64 device arrays exist: x64 enabled on a CPU or GPU
+    backend. Float64 operands then come back as float64 results."""
+    return (bool(jax.config.jax_enable_x64)
+            and jax.default_backend() in ("cpu", "gpu"))
 
-    numpy input: free view. jax input: uses bitcast_convert_type, which
-    requires a backend with native f64 bit layout exposure (CPU). On TPU, pass
-    F64Bits directly (or convert on host)."""
+
+def f64_to_bits(x) -> F64Bits:
+    """Convert an f64 array (numpy or jax) to F64Bits.
+
+    With float64 device arrays (`backend_has_f64`) the array is moved to
+    the device once and split there by a bitcast; otherwise numpy input is
+    split on the host by a free view."""
     if isinstance(x, F64Bits):
         return x
+    if isinstance(x, np.ndarray) and backend_has_f64():
+        x = jnp.asarray(np.asarray(x, np.float64))
     if isinstance(x, np.ndarray):
         u = np.ascontiguousarray(x, dtype=np.float64).view(np.uint32)
         u = u.reshape(x.shape + (2,))
         # little-endian: word 0 = low, word 1 = high
         return F64Bits(jnp.asarray(u[..., 1]), jnp.asarray(u[..., 0]))
+    return _split_f64(x)
+
+
+@jax.jit
+def _split_f64(x):
+    # one dispatch instead of one per eager op
     u = jax.lax.bitcast_convert_type(x.astype(jnp.float64), jnp.uint32)
     return F64Bits(u[..., 1], u[..., 0])
+
+
+@jax.jit
+def _join_f64(hi, lo):
+    return jax.lax.bitcast_convert_type(jnp.stack([lo, hi], axis=-1),
+                                        jnp.float64)
 
 
 def as_numpy(x) -> np.ndarray:
@@ -98,16 +119,15 @@ def as_numpy(x) -> np.ndarray:
 
 
 def bits_to_f64(b: F64Bits, to_numpy: bool = False):
-    """Inverse of f64_to_bits. Without x64 enabled (e.g. on TPU) a device
-    bitcast would silently truncate to f32, so the conversion happens on
-    host and returns numpy in that case."""
+    """Inverse of f64_to_bits: a device bitcast when x64 is enabled.
+    Without x64 a device f64 array cannot exist, so the conversion happens
+    on the host and returns numpy in that case."""
     if to_numpy or not jax.config.jax_enable_x64:
         hi = np.asarray(b.hi, dtype=np.uint32)
         lo = np.asarray(b.lo, dtype=np.uint32)
         u = np.stack([lo, hi], axis=-1)
         return np.ascontiguousarray(u).view(np.float64).reshape(hi.shape)
-    u = jnp.stack([b.lo, b.hi], axis=-1)
-    return jax.lax.bitcast_convert_type(u, jnp.float64)
+    return _join_f64(b.hi, b.lo)
 
 
 def f32_to_bits(x) -> jax.Array:
@@ -117,14 +137,3 @@ def f32_to_bits(x) -> jax.Array:
 
 def bits_to_f32(u) -> jax.Array:
     return jax.lax.bitcast_convert_type(u.astype(jnp.uint32), jnp.float32)
-
-
-def assemble_c64_host(re, im) -> np.ndarray:
-    """(re, im) f32 device planes -> numpy complex64, with the interleave
-    done ON DEVICE (one packed (..., 2) f32 tensor) and only a zero-copy
-    reinterpret view on the host. TPU runtimes here cannot hold complex64
-    device arrays (transfers raise UNIMPLEMENTED), so this is the minimal
-    host step possible: one contiguous transfer, no host arithmetic."""
-    packed = jnp.stack([jnp.asarray(re, jnp.float32),
-                        jnp.asarray(im, jnp.float32)], axis=-1)
-    return np.ascontiguousarray(np.asarray(packed)).view(np.complex64)[..., 0]

@@ -1,12 +1,11 @@
 // Double-double ground-truth GEMM for the accuracy harness.
 //
 // Native analog of the reference's dd evaluation kernels
-// (/root/reference/GEMMul8/testing/eval.hpp:15-164, 265-308): error-free
+// (GEMMul8 testing/eval.hpp:15-164, 265-308): error-free
 // TwoProd (FMA) + TwoSum accumulation so the result carries ~106 bits of
 // precision — the oracle every accuracy test compares against. The
-// reference runs this as a CUDA kernel; here it is host C++/OpenMP (the
-// TPU has no f64, and the oracle must be independent of the device under
-// test anyway).
+// reference runs this as a CUDA kernel; here it is host C++/OpenMP: the
+// oracle must be independent of the device under test.
 //
 // Also exports a phi-difficulty matrix generator matching
 // testing/make_matrix.hpp:8-35's distribution ((u-0.5)*exp(phi*N(0,1))),

@@ -1,6 +1,6 @@
 """Reference-scale accuracy sweeps on the CPU backend (native-f64 ground
-truth; the backend-portability half of the evidence — the same protocol
-as scripts/accuracy_sweep_tpu.py but runnable without the chip).
+truth). The slices and the CRT are exact integer work, so the accuracy
+curves are the same on every backend.
 
 Produced the committed results_committed/oz2_results_{d,f,md,mf}_accuracy_cpu_*
 CSVs. Long-running (the dd oracle and the jnp path both grind at k=8192):

@@ -91,32 +91,6 @@ def test_mixed_complex_types(strat):
     assert np.abs((c2 - ref) / np.abs(ref)).max() < 1e-12
 
 
-@pytest.mark.parametrize("strat", STRATS)
-def test_complex_pallas_path(strat):
-    """The Pallas complex path (joint Re/Im stats kernels + fused encode +
-    kernel reconstruct) matches the reference product at fast-14 accuracy.
-    (Bit-equality with the jnp path is not required: the joint-norm merge
-    may legally pick a shift differing by 1 ulp of log2.)"""
-    from gemmul8_tpu.core import complexgemm as cg
-    from gemmul8_tpu.types import f64_to_bits
-
-    rng = np.random.default_rng(6)
-    m, k, n = 40, 96, 32
-    ar = (rng.random((m, k)) - .5) * np.exp(rng.standard_normal((m, k)))
-    ai = (rng.random((m, k)) - .5) * np.exp(rng.standard_normal((m, k)))
-    br = (rng.random((k, n)) - .5)
-    bi = (rng.random((k, n)) - .5)
-    ore, oim = cg.gemm_complex_core(
-        f64_to_bits(ar), f64_to_bits(ai), f64_to_bits(br), f64_to_bits(bi),
-        14, True, strat, "f64", use_pallas=True)
-    from gemmul8_tpu.types import bits_to_f64
-
-    got = bits_to_f64(ore, to_numpy=True) + 1j * bits_to_f64(oim,
-                                                             to_numpy=True)
-    ref = (ar + 1j * ai) @ (br + 1j * bi)
-    assert float(np.abs((got - ref) / np.abs(ref)).max()) < 1e-8
-
-
 @pytest.mark.parametrize("seed", range(3))
 def test_fuzz_complex_configs(seed):
     """Random complex shapes / strategies / moduli / modes vs numpy
@@ -151,41 +125,3 @@ def test_accurate_complex_magnitude_overflow_regression():
                                compute_type=strat))
         ref = (A @ B)[0, 0]
         assert abs(c[0, 0] - ref) / abs(ref) < 1e-12, (strat, c[0, 0], ref)
-
-
-def test_assemble_c64_host_view():
-    # the TPU-branch assembly helper: device interleave + host view must
-    # equal the arithmetic interleave exactly
-    import numpy as np
-    from gemmul8_tpu.types import assemble_c64_host
-
-    rng = np.random.default_rng(3)
-    re = rng.standard_normal((33, 47)).astype(np.float32)
-    im = rng.standard_normal((33, 47)).astype(np.float32)
-    got = assemble_c64_host(re, im)
-    assert got.dtype == np.complex64 and got.shape == (33, 47)
-    assert np.array_equal(got.view(np.float32)[..., ::2], re)
-    assert np.array_equal(got.view(np.float32)[..., 1::2], im)
-
-
-@pytest.mark.parametrize("strat", STRATS)
-def test_complex_pallas_nonsquare_m_equals_k(strat):
-    """Regression (r5 review): the fused complex matmul's operand padding
-    must not disambiguate A vs B by shape — with m == k != n and pad
-    amounts differing, a shape-keyed pad corrupted B's layout (latent
-    until a non-square call; square benches never hit it)."""
-    from gemmul8_tpu.core import complexgemm as cg
-    from gemmul8_tpu.types import bits_to_f64, f64_to_bits
-
-    rng = np.random.default_rng(17)
-    m = k = 40
-    n = 24            # m == k, n different, pads differ per axis
-    ar, ai = rng.standard_normal((m, k)), rng.standard_normal((m, k))
-    br, bi = rng.standard_normal((k, n)), rng.standard_normal((k, n))
-    ore, oim = cg.gemm_complex_core(
-        f64_to_bits(ar), f64_to_bits(ai), f64_to_bits(br), f64_to_bits(bi),
-        14, True, strat, "f64", use_pallas=True)
-    got = bits_to_f64(ore, to_numpy=True) + 1j * bits_to_f64(oim,
-                                                             to_numpy=True)
-    ref = (ar + 1j * ai) @ (br + 1j * bi)
-    assert float(np.abs((got - ref) / np.abs(ref)).max()) < 1e-8

@@ -50,26 +50,6 @@ def test_sharded_shape_validation(mesh):
         dist.gemm_sharded(a, b, mesh, num_moduli=4)
 
 
-def test_sharded_pallas_path_bitexact():
-    """The Pallas per-shard path (stats combined across k-shards) matches
-    the jnp shard body bit-for-bit on the virtual mesh."""
-    from gemmul8_tpu.parallel import distributed as dist
-    from gemmul8_tpu.types import f64_to_bits
-
-    mesh = dist.make_mesh(8)
-    nx, ny = mesh.shape["x"], mesh.shape["y"]
-    m, k, n = 8 * nx, 32 * ny, 8 * ny
-    rng = np.random.default_rng(11)
-    a = (rng.random((m, k)) - 0.5) * np.exp(rng.standard_normal((m, k)) * 2)
-    b = (rng.random((k, n)) - 0.5) * np.exp(rng.standard_normal((k, n)) * 2)
-    ref = dist.gemm_sharded(f64_to_bits(a), f64_to_bits(b), mesh,
-                            num_moduli=12, use_pallas=False)
-    got = dist.gemm_sharded(f64_to_bits(a), f64_to_bits(b), mesh,
-                            num_moduli=12, use_pallas=True)
-    assert np.array_equal(np.asarray(ref.hi), np.asarray(got.hi))
-    assert np.array_equal(np.asarray(ref.lo), np.asarray(got.lo))
-
-
 def test_sharded_accurate_mode(mesh):
     """Accurate ('int8tc') sharded: magnitude GEMM psum'd over k-shards;
     result matches the single-device accurate path bit-for-bit (the shift
@@ -81,7 +61,7 @@ def test_sharded_accurate_mode(mesh):
     b = phi_matrix(k, n, 1.0, seed=301)
     A, B = f64_to_bits(a), f64_to_bits(b)
     out = dist.gemm_sharded(A, B, mesh, num_moduli=14, fastmode=False)
-    single = gg.gemm_core(A, B, 14, False, "f64", use_pallas=False)
+    single = gg.gemm_core(A, B, 14, False, "f64")
     assert np.array_equal(np.asarray(single.hi), np.asarray(out.hi))
     assert np.array_equal(np.asarray(single.lo), np.asarray(out.lo))
 

@@ -98,7 +98,7 @@ def test_mod_m_centered_redundant_and_canonical():
             if i % 2:
                 # adversarial redistribution: push each limb AS CLOSE TO
                 # the documented 2^29 redundant bound as the limb above
-                # can fund — the MXU digit-assembly path's contract
+                # can fund — a carry-free digit assembly's contract
                 # (_crt_accumulate_mxu limb sums < 2^29) and the quotient
                 # budget (t - t_est < 1.5) are sized for exactly this
                 for l in range(nl - 1):

@@ -109,25 +109,9 @@ def test_ozimmu_auto_split():
     assert 3 <= s_easy <= 16 and 3 <= s_hard <= 16
 
 
-def test_moduli_chunked_pallas_bitexact():
-    """The Pallas low-memory path (chunked encode/matmul + limb-input
-    reconstruct) is bit-identical to the one-shot jnp path."""
-    from gemmul8_tpu.core import gemm as gg
-    from gemmul8_tpu.types import f64_to_bits
-
-    rng = np.random.default_rng(0)
-    a = (rng.random((48, 160)) - .5) * np.exp(rng.standard_normal((48, 160)))
-    b = (rng.random((160, 40)) - .5) * np.exp(rng.standard_normal((160, 40)))
-    A, B = f64_to_bits(a), f64_to_bits(b)
-    ref = gg.gemm_core(A, B, 14, True, "f64", use_pallas=False)
-    got = gg.gemm_core(A, B, 14, True, "f64", moduli_chunk=5,
-                       use_pallas=True)
-    assert np.array_equal(np.asarray(ref.hi), np.asarray(got.hi))
-    assert np.array_equal(np.asarray(ref.lo), np.asarray(got.lo))
-
-
 def test_n_panel_bitexact():
-    """Column-panel schedule (for problems whose slices exceed HBM) is
+    """Column-panel schedule (for problems whose slices exceed device
+    memory) is
     bit-identical to one-shot in fast mode."""
     from gemmul8_tpu.core import gemm as gg
     from gemmul8_tpu.types import f64_to_bits
@@ -136,11 +120,9 @@ def test_n_panel_bitexact():
     a = (rng.random((48, 200)) - .5) * np.exp(rng.standard_normal((48, 200)))
     b = (rng.random((200, 100)) - .5) * np.exp(rng.standard_normal((200, 100)))
     A, B = f64_to_bits(a), f64_to_bits(b)
-    ref = gg.gemm_core(A, B, 14, True, "f64", use_pallas=False)
-    for up in (False, True):
-        got = gg.gemm_core_panels(A, B, 14, True, "f64", n_panel=32,
-                                  use_pallas=up)
-        assert np.array_equal(np.asarray(ref.hi), np.asarray(got.hi))
-        assert np.array_equal(np.asarray(ref.lo), np.asarray(got.lo))
+    ref = gg.gemm_core(A, B, 14, True, "f64")
+    got = gg.gemm_core_panels(A, B, 14, True, "f64", n_panel=32)
+    assert np.array_equal(np.asarray(ref.hi), np.asarray(got.hi))
+    assert np.array_equal(np.asarray(ref.lo), np.asarray(got.lo))
     out = np.asarray(g8.gemm(a, b, num_moduli=14, n_panel=32))
     assert np.abs((out - a @ b) / (a @ b)).max() < 1e-9

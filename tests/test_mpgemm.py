@@ -58,7 +58,7 @@ def test_cgemm(data):
 
 
 def test_gemm_mx2x2_matches_exact():
-    """(m, 2) x (2, 2) skinny path (cuGEMM-Mx2x2 analog): exact f32 VPU
+    """(m, 2) x (2, 2) skinny path (cuGEMM-Mx2x2 analog): exact f32
     mult-adds, plain / batched / complex, and the enable/disable toggle."""
     rng = np.random.default_rng(7)
     a = rng.standard_normal((257, 2)).astype(np.float32)

@@ -60,7 +60,7 @@ def test_profile_logs_native_calls_too():
 
 
 def test_complex_bits_transpose_op():
-    """op_a='T' on the TPU complex128 representation (C64Bits)."""
+    """op_a='T' on the bits complex128 representation (C64Bits)."""
     rng = np.random.default_rng(3)
     a = rng.standard_normal((16, 32)) + 1j * rng.standard_normal((16, 32))
     b = rng.standard_normal((16, 24)) + 1j * rng.standard_normal((16, 24))
